@@ -9,15 +9,26 @@ each of which raises on failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the kernels (one ``nvcc`` per source, all at once);
-3. every kernel against its plain PyTorch version at the serving path's
-   shapes, with times: the kernel, the plain version, the least time the
-   card could take (bytes over 3.35 TB/s or flops over 67 TFLOP/s, the
-   larger), and one PyTorch library call computing the same function;
+3. every kernel against its plain PyTorch version at its path's shapes,
+   with times: the kernel, the plain version, the least time the card
+   could take (bytes over 3.35 TB/s or flops over the peak of the
+   kernel's arithmetic — 67 TFLOP/s f32 for the SpMM, 989 TFLOP/s bf16
+   tensor cores for the batched product — the larger), and one PyTorch
+   library call computing the same function;
 4. serving: ``Predictor`` over ``PoolingClassifier`` (GCN → top-k → GCN →
    sum readout → MLP head, hidden 128, bf16) on full-size requests (one
    graph each: 65,536 nodes, 1,000,000 random edges, 128 features), with
    the kernels' launch counts, and the logits held against the same model
-   run on the CPU with the kernels' plain versions.
+   run on the CPU with the kernels' plain versions;
+5. dense training (``bench.py::bench_jax`` at full width: 64 graphs × 256
+   nodes, ER p = 0.03, 128 features): ``DenseTopkClassifier`` (hidden 128,
+   bf16, the batched-product kernel) takes 10 Adam steps; the kernel must
+   launch 4 times a step, and step one's loss and gradients are held
+   against the same model and batch on the CPU;
+6. the documented default path on the same graphs: ``prepare_batch`` +
+   ``PoolingClassifier(pre_normalized=True)`` trains with the kernel and
+   with ``torch.matmul`` in turns (kernel, matmul, matmul, kernel; 3 steps
+   a turn).
 
 The next-to-last line of output is a JSON object ``{"kernels": [...]}``;
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -42,10 +53,19 @@ N_NODES, N_EDGES, FEATURES, HIDDEN, CLASSES = 65_536, 1_000_000, 128, 128, 3
 REQUESTS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 REPEATS = 20
 REPLACES = "tgp_tpu/ops/pallas/segment_spmm.py:224"  # _grouped_kernel_w
 K2_REPLACES = "tgp_tpu/ops/pallas/segment_spmm.py:205"  # _grouped_kernel
 SOURCE = "tgp_tpu_torch/csrc/segment_spmm.cu"
+# the dense training slice: bench.py::bench_jax's workload at full width
+DENSE_GRAPHS, DENSE_NODES, DENSE_P = 64, 256, 0.03
+DENSE_STEPS, DEFAULT_STEPS = 10, 3
+K3_REPLACES = "tgp_tpu/ops/pallas/bmm.py:37"  # _kernel / bmm_pallas
+K3_SOURCE = "tgp_tpu_torch/csrc/bmm.cu"
+K3_REL_TOL = 1e-5  # of Σₖ|a||b|: same bf16 products, other f32 sum order
+# step one of training, GPU against the CPU's plain versions (bf16):
+LOSS_REL_TOL, GRAD_REL_TOL = 2e-2, 5e-2  # loss; each leaf's max |value|
 
 
 def request_graph(seed: int):
@@ -55,6 +75,40 @@ def request_graph(seed: int):
     r = rng.integers(0, N_NODES, N_EDGES)
     x = rng.normal(size=(N_NODES, FEATURES)).astype(np.float32)
     return x, np.stack([s, r])
+
+
+def dense_graphs(seed: int = 0):
+    """``bench.py::make_graphs``: 64 ER graphs of 256 nodes, 128 features,
+    labels in {0, 1, 2}."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(DENSE_GRAPHS):
+        n = DENSE_NODES
+        upper = np.triu(rng.random((n, n)) < DENSE_P, k=1)
+        s, r = np.nonzero(upper | upper.T)
+        x = rng.normal(size=(n, FEATURES)).astype(np.float32)
+        graphs.append((x, np.stack([s, r]).astype(np.int64)))
+    labels = rng.integers(0, 3, size=DENSE_GRAPHS).astype(np.int32)
+    return graphs, labels
+
+
+def _wrappers():
+    """Every kernel wrapper of the port, by name (each counts its
+    launches in ``.launches``)."""
+    from tgp_tpu_torch.ops.kernels import bmm, segment_spmm
+
+    return {"spmm_csr": segment_spmm.spmm_csr,
+            "segment_sum_sorted": segment_spmm.segment_sum_sorted,
+            "bmm": bmm.bmm}
+
+
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def card_line() -> str:
@@ -82,10 +136,24 @@ def median_ms(fn, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
+def host_us(fn) -> float:
+    """Host time of one call of ``fn`` (checks, allocation, launch), mean
+    over REPEATS calls enqueued without waiting for the device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPEATS):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / REPEATS
+
+
 def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
-               scale, flush):
+               peak, scale, flush, note=None):
     """Hold one kernel mode against its plain version, then time all
-    three.  Tolerance: |kernel − plain| ≤ rel_tol · (row's Σ|w·x|)."""
+    three.  Tolerance: |kernel − plain| ≤ rel_tol · scale (per element:
+    Σ|w·x| of the row, Σₖ|a||b| of the product).  ``peak``: flop/s of the
+    kernel's arithmetic on this card."""
     got = kernel()
     torch.cuda.synchronize()
     ref = plain()
@@ -100,10 +168,14 @@ def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
                rel_tol=rel_tol, ms=median_ms(kernel, flush),
                plain_ms=median_ms(plain, flush),
                bound_ms=1e3 * max(bound_bytes / HBM_BYTES_PER_S,
-                                  flops / FP32_FLOPS_PER_S),
+                                  flops / peak),
                bound_by=("bytes" if bound_bytes / HBM_BYTES_PER_S
-                         >= flops / FP32_FLOPS_PER_S else "operations"),
-               library_ms=median_ms(library, flush))
+                         >= flops / peak else "operations"),
+               bound_bytes=bound_bytes, flops=flops, peak_flops=peak,
+               library_ms=median_ms(library, flush),
+               kernel_host_us=host_us(kernel))
+    if note:
+        row["library"] = note
     print(f"[kernels] {json.dumps(row)}", flush=True)
     return row
 
@@ -147,7 +219,7 @@ def phase_kernels(batch):
             sparse_mm(weights, idx, x),
             rel_tol=1e-2 if dtype == torch.bfloat16 else 1e-4,
             bound_bytes=csr_bytes + 2 * N * F * isz, flops=2 * E * F,
-            scale=scale, flush=flush)
+            peak=FP32_FLOPS_PER_S, scale=scale, flush=flush)
 
     # K2 mode: receiver-sorted messages [E, F], no gather, no weight
     msgs = (torch.randn(E, FEATURES, generator=gen, device="cuda")
@@ -162,7 +234,61 @@ def phase_kernels(batch):
         lambda: K.segment_sum_sorted_plain(msgs, rec, N, row_ptr),
         sparse_mm(ones, cols, msgs), rel_tol=1e-2,
         bound_bytes=4 * (rows + 1) + 2 * E * FEATURES + 2 * N * FEATURES,
-        flops=E * FEATURES, scale=scale, flush=flush)
+        flops=E * FEATURES, peak=FP32_FLOPS_PER_S, scale=scale, flush=flush)
+    del flush
+    return modes
+
+
+def phase_kernels_k3(adj):
+    """K3 at the dense training slice's shapes, on its normalized bf16
+    adjacency ``adj [64, 256, 256]`` (its top-left 128 × 128 blocks for
+    the post-pool shape): the two forward products, the two backward
+    ``db = aᵀ g`` with an f32 cotangent ``g``, and the ``trans_b`` mode
+    (``da = g bᵀ``, which the step does not run)."""
+    from tgp_tpu_torch.ops.kernels import bmm as K
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    B, N = adj.shape[:2]
+    K2 = N // 2
+    post = adj[:, :K2, :K2].contiguous()
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, a, b, trans_a, trans_b
+        ("fwd pre", adj, rnd(B, N, HIDDEN, dtype=bf16), False, False),
+        ("fwd post", post, rnd(B, K2, HIDDEN, dtype=bf16), False, False),
+        ("bwd pre trans_a", adj, rnd(B, N, HIDDEN, dtype=f32), True, False),
+        ("bwd post trans_a", post, rnd(B, K2, HIDDEN, dtype=f32), True,
+         False),
+        ("trans_b", rnd(B, N, HIDDEN, dtype=f32),
+         rnd(B, N, HIDDEN, dtype=bf16), False, True),
+    ]
+    # torch.bmm with an f32 output from bf16 operands, where this torch
+    # has it (aten::bmm.dtype); else bf16 output
+    out_f32 = hasattr(torch.ops.aten.bmm, "dtype")
+    note = ("torch.bmm(bf16, bf16, out_dtype=float32)" if out_f32
+            else "torch.bmm(bf16, bf16) -> bf16")
+    modes = {}
+    for name, a, b, ta, tb in cases:
+        a_op = (a.transpose(1, 2) if ta else a).to(bf16)
+        b_op = (b.transpose(1, 2) if tb else b).to(bf16)
+        kw = {"out_dtype": f32} if out_f32 else {}
+        n, m = a_op.shape[1:]
+        f = b_op.shape[2]
+        nbytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
+                  + 4 * B * n * f)
+        full = f"K3 bmm {name} [{B},{n},{m}]x[{B},{m},{f}]"
+        modes[name] = check_mode(
+            full, lambda: K.bmm(a, b, ta, tb),
+            lambda: K.bmm_plain(a, b, ta, tb),
+            lambda: torch.bmm(a_op, b_op, **kw), rel_tol=K3_REL_TOL,
+            bound_bytes=nbytes, flops=2 * B * n * m * f,
+            peak=BF16_TC_FLOPS_PER_S,
+            scale=K.bmm_plain(a.abs(), b.abs(), ta, tb), flush=flush,
+            note=note)
     del flush
     return modes
 
@@ -185,7 +311,6 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
     defaults a user gets, count the kernel launches, and hold the logits
     to the CPU."""
     from tgp_tpu_torch import Predictor
-    from tgp_tpu_torch.ops.kernels import segment_spmm as K
 
     model = build_model("cuda").eval()
     predictor = Predictor(lambda b: model(b)[0], batch_size=1,
@@ -196,15 +321,13 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
         raise AssertionError("the served request did not take masked pooling")
 
     # the main path, counted: the predictor answers every request
-    K.spmm_csr.launches = 0
-    K.segment_sum_sorted.launches = 0
+    reset_counts()
     req_ms, served = [], []
     for g in graphs:
         t0 = time.perf_counter()
         served.append(predictor([g]))
         req_ms.append(1e3 * (time.perf_counter() - t0))
-    launches = {"spmm_csr": K.spmm_csr.launches,
-                "segment_sum_sorted": K.segment_sum_sorted.launches}
+    launches = read_counts()
     if launches["spmm_csr"] != 3 * REQUESTS:
         raise AssertionError(f"spmm_csr launched {launches['spmm_csr']} "
                              f"times for {REQUESTS} requests, want 3 each")
@@ -258,6 +381,192 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
     return result
 
 
+def _timed_step(step):
+    """Run ``step()`` between two CUDA events; (device ms, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = step()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _train_step(model, opt, batch, y, aux):
+    """One step of ``bench.py``'s loop: softmax cross-entropy (+ the
+    pooler's auxiliary losses on the default path), backward, Adam."""
+    opt.zero_grad(set_to_none=True)
+    logits, out = model(batch)
+    loss = torch.nn.functional.cross_entropy(logits, y)
+    if aux:
+        loss = loss + out.loss_sum()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _step_one_grads(model, batch, y):
+    """Loss and gradients (copies, on the model's device) of one step,
+    without the update."""
+    model.zero_grad(set_to_none=True)
+    logits, _ = model(batch)
+    loss = torch.nn.functional.cross_entropy(logits, y)
+    loss.backward()
+    return loss.detach(), {k: v.grad.detach().float().clone()
+                           for k, v in model.named_parameters()}
+
+
+def phase_train_dense(card, dense, y, n_edges, profile: bool):
+    """10 Adam steps of ``DenseTopkClassifier`` on the card (bf16, K3),
+    K3 counted, step one held against the CPU."""
+    from tgp_tpu_torch import DenseTopkClassifier
+    from tgp_tpu_torch.ops.kernels import bmm as K
+
+    def build(device):
+        return DenseTopkClassifier(
+            num_classes=CLASSES, hidden=HIDDEN, ratio=0.5,
+            pre_normalized=True, compute_dtype=torch.bfloat16,
+            use_kernel=True, in_channels=FEATURES, device=device,
+            generator=torch.Generator().manual_seed(0))
+
+    model = build("cuda")
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    # the main path, counted: 10 steps, K3 four times a step
+    reset_counts()
+    step_ms, losses, per_step = [], [], []
+    for i in range(DENSE_STEPS):
+        before = K.bmm.launches
+        if i == 0:  # step one keeps its gradients for the CPU check
+            def first():
+                out = _step_one_grads(model, dense, y)
+                opt.step()
+                return out
+
+            ms, (loss, grads0) = _timed_step(first)
+            loss0 = float(loss)
+            grads0 = {k: v.cpu() for k, v in grads0.items()}
+        else:
+            ms, loss = _timed_step(
+                lambda: _train_step(model, opt, dense, y, aux=False))
+        step_ms.append(ms)
+        losses.append(float(loss))
+        per_step.append(K.bmm.launches - before)
+    launches = read_counts()
+    if per_step != [4] * DENSE_STEPS:
+        raise AssertionError(f"K3 launches per step {per_step}, want 4")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses}")
+
+    # step one on the CPU: same weights and batch, plain versions
+    cpu = build("cpu")
+    cpu.load_state_dict(init)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = _step_one_grads(cpu, dense.to("cpu"), y.cpu())
+    cpu_loss = float(cpu_loss)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss0 - cpu_loss) / abs(cpu_loss)
+    grad_err = {k: float((grads0[k] - g).abs().max()
+                         / max(float(g.abs().max()), 1e-30))
+                for k, g in cpu_grads.items()}
+    if loss_err > LOSS_REL_TOL or max(grad_err.values()) > GRAD_REL_TOL:
+        raise AssertionError(f"step one on the card vs the CPU: loss "
+                             f"{loss0} vs {cpu_loss}, gradient errors "
+                             f"{grad_err}")
+    med = statistics.median(step_ms)
+    result = dict(
+        card=card, graphs=DENSE_GRAPHS, nodes=DENSE_NODES, edges=n_edges,
+        steps=DENSE_STEPS, step_ms=step_ms, step_ms_median=med,
+        edges_per_s=n_edges / (med / 1e3), losses=losses,
+        launches=launches, launches_per_step=per_step,
+        step1_loss=loss0, step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
+        loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
+        grad_rel_tol=GRAD_REL_TOL, cpu_check_s=cpu_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[train_dense] {json.dumps(result)}", flush=True)
+
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            for _ in range(3):
+                _train_step(model, opt, dense, y, aux=False)
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = p.key_averages()
+        busy_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation) / 1e3
+        print(events.table(sort_by="self_device_time_total", row_limit=30),
+              flush=True)
+        # the profiler slows the host: the idle share of an unprofiled
+        # step is 1 − (busy per step) / (median step time above)
+        prof_row = dict(steps=3, profiled_wall_ms=wall_ms,
+                        device_busy_ms=busy_ms,
+                        busy_ms_per_step=busy_ms / 3,
+                        idle_share=1 - busy_ms / 3 / med)
+        print(f"[train_dense profile] {json.dumps(prof_row)}", flush=True)
+    return result
+
+
+def phase_train_default(card, graphs, labels):
+    """``bench.py::bench_jax_default`` on the card: ``prepare_batch``
+    densifies, ``PoolingClassifier(pre_normalized=True)`` trains with the
+    kernel (K3 counted) and with ``torch.matmul``, in turns (kernel,
+    matmul, matmul, kernel), each turn DEFAULT_STEPS steps from the same
+    weights."""
+    from tgp_tpu_torch import (DenseGraphBatch, PoolingClassifier,
+                               from_graphs, get_pooler, prepare_batch)
+
+    g = torch.Generator().manual_seed(1)
+    pooler = get_pooler("topk", in_channels=HIDDEN, ratio=0.5,
+                        device="cuda", generator=g)
+    batch = prepare_batch(from_graphs(graphs, device="cuda"), pooler=pooler,
+                          normalize=True)
+    if not isinstance(batch, DenseGraphBatch):
+        raise AssertionError("prepare_batch did not densify the batch")
+    y = torch.tensor(labels, device="cuda").long()
+    model = PoolingClassifier(pooler, num_classes=CLASSES, hidden=HIDDEN,
+                              in_channels=FEATURES, pre_normalized=True,
+                              use_kernel=True, device="cuda", generator=g)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    result = {"card": card, "steps_per_turn": DEFAULT_STEPS,
+              "kernel": {"step_ms": [], "launches": []},
+              "matmul": {"step_ms": [], "launches": []}}
+    for route in ("kernel", "matmul", "matmul", "kernel"):
+        model.load_state_dict(init)
+        for conv in (*model.pre_convs, *model.post_convs):
+            conv.use_kernel = route == "kernel"
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        reset_counts()
+        runs = [_timed_step(lambda: _train_step(model, opt, batch, y,
+                                                aux=True))
+                for _ in range(DEFAULT_STEPS)]
+        losses = [float(loss) for _, loss in runs]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{route}: non-finite losses {losses}")
+        launches = read_counts()
+        want = {"spmm_csr": 0, "segment_sum_sorted": 0,
+                "bmm": 4 * DEFAULT_STEPS if route == "kernel" else 0}
+        if launches != want:
+            raise AssertionError(f"{route} route launched {launches}, "
+                                 f"want {want}")
+        row = result[route]
+        row["step_ms"] += [ms for ms, _ in runs]
+        row["launches"].append(launches["bmm"])
+        row["losses"] = losses
+    for route in ("kernel", "matmul"):
+        result[route]["step_ms_median"] = statistics.median(
+            result[route]["step_ms"])
+    print(f"[train_default] {json.dumps(result)}", flush=True)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -301,16 +610,39 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     collate_ms = 1e3 * (time.perf_counter() - t0)
     modes = phase_kernels(batch)
-    serving = phase_serving(card, graphs, batch, collate_ms, args.profile)
 
-    main_mode = modes[f"K1 spmm_csr F={FEATURES} bfloat16"]
-    kernels = [dict(
-        name="spmm_csr", route="cuda", source=SOURCE, replaces=REPLACES,
-        launches=serving["launches"]["spmm_csr"],
-        max_abs_err=main_mode["max_abs_err"], ms=main_mode["ms"],
-        plain_ms=main_mode["plain_ms"], bound_ms=main_mode["bound_ms"],
-        bound_by=main_mode["bound_by"], library_ms=main_mode["library_ms"])]
-    print(f"[modes] {json.dumps(list(modes.values()))}", flush=True)
+    # the dense training slice's batch (bench.py::bench_jax): collated,
+    # densified and normalized once, outside the steps
+    from tgp_tpu_torch import gcn_norm_dense, to_dense
+
+    d_graphs, d_labels = dense_graphs(0)
+    d_batch = from_graphs(d_graphs, device="cuda")
+    n_dense_edges = int(d_batch.edge_mask.sum())
+    dense = gcn_norm_dense(to_dense(d_batch), adj_dtype=torch.bfloat16)
+    k3_modes = phase_kernels_k3(dense.adj)
+
+    serving = phase_serving(card, graphs, batch, collate_ms, args.profile)
+    train = phase_train_dense(card, dense,
+                              torch.tensor(d_labels, device="cuda").long(),
+                              n_dense_edges, args.profile)
+    phase_train_default(card, d_graphs, d_labels)
+
+    def entry(name, source, replaces, launches, mode):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    max_abs_err=mode["max_abs_err"], ms=mode["ms"],
+                    plain_ms=mode["plain_ms"], bound_ms=mode["bound_ms"],
+                    bound_by=mode["bound_by"],
+                    library_ms=mode["library_ms"])
+
+    kernels = [
+        entry("spmm_csr", SOURCE, REPLACES,
+              serving["launches"]["spmm_csr"],
+              modes[f"K1 spmm_csr F={FEATURES} bfloat16"]),
+        entry("bmm", K3_SOURCE, K3_REPLACES, train["launches"]["bmm"],
+              k3_modes["fwd pre"])]
+    print(f"[modes] {json.dumps(list(modes.values()) + list(k3_modes.values()))}",
+          flush=True)
     print(f"K2 mode ({K2_REPLACES}) shares {SOURCE}; the serving path "
           f"launched it {serving['launches']['segment_sum_sorted']} times",
           flush=True)

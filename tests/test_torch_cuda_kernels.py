@@ -1,6 +1,6 @@
-"""The CUDA kernel of ``tgp_tpu_torch/csrc/segment_spmm.cu`` against its
-plain PyTorch version, on the card.  Without one the tests skip; on a GPU
-machine (which need not have JAX) run them alone:
+"""The CUDA kernels of ``tgp_tpu_torch/csrc/`` (``segment_spmm.cu``,
+``bmm.cu``) against their plain PyTorch versions, on the card.  Without one
+the tests skip; on a GPU machine (which need not have JAX) run them alone:
 
     python3 -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda_kernels.py
 
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tgp_tpu_torch.ops.kernels import bmm as BMM
 from tgp_tpu_torch.ops.kernels import segment_spmm as K
 
 N_NODES = 150
@@ -90,3 +91,92 @@ def test_cuda_kernel_matches_plain(F, dtype, n_pad, hub):
     scale2 = np.zeros((c["n"], F))
     np.add.at(scale2, c["r"], np.abs(msgs.float().cpu().numpy()))
     _assert_rel(got2.float().cpu(), ref2.float().cpu(), rel, scale2)
+
+
+BMM_VARIANTS = [(False, False), (True, False), (False, True)]
+# (batch, n, m, f): the dense regime's two shapes and two ragged ones
+BMM_SIZES = [(64, 256, 256, 128), (64, 128, 128, 128), (3, 40, 24, 17),
+             (5, 70, 130, 33)]
+
+
+def _bmm_operands(batch, n, m, f, trans_a, trans_b, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((batch, m, n) if trans_a else (batch, n, m),
+                    generator=g, device="cuda")
+    b = torch.randn((batch, f, m) if trans_b else (batch, m, f),
+                    generator=g, device="cuda")
+    return a.to(getattr(torch, dtype)), b.to(getattr(torch, dtype))
+
+
+def _bmm_check(got, ref, scale, slack=0.0):
+    """|kernel − plain| ≤ 1e-5 · Σₖ|a||b|: both sum the same exact bf16
+    products in f32, in other orders; ``slack`` · |ref| more for a result
+    rounded to bf16 afterwards."""
+    got, ref, scale = got.float().cpu(), ref.float().cpu(), scale.cpu()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert ((got - ref).abs() <= 1e-5 * scale + slack * ref.abs()
+            + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", BMM_SIZES)
+@pytest.mark.parametrize("trans_a,trans_b", BMM_VARIANTS,
+                         ids=["nn", "trans_a", "trans_b"])
+def test_cuda_bmm_matches_plain(trans_a, trans_b, size, dtype):
+    """K3's kernel against ``bmm_plain`` on the card (TF32 off), one
+    counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run with `pytest -m cuda` on the GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = _bmm_operands(*size, trans_a, trans_b, dtype)
+    before = BMM.bmm.launches
+    got = BMM.bmm(a, b, trans_a, trans_b)
+    torch.cuda.synchronize()
+    assert BMM.bmm.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (size[0], size[1],
+                                                        size[3])
+    _bmm_check(got, BMM.bmm_plain(a, b, trans_a, trans_b),
+               BMM.bmm_plain(a.abs(), b.abs(), trans_a, trans_b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("trans_a,trans_b", BMM_VARIANTS,
+                         ids=["nn", "trans_a", "trans_b"])
+def test_cuda_bmm_backward_matches_plain_autograd(trans_a, trans_b, dtype):
+    """The autograd backward on the card (two kernel launches) against the
+    same ``autograd.Function`` on CPU copies, where every product is
+    ``bmm_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run with `pytest -m cuda` on the GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    size = (5, 70, 130, 33)
+    a, b = _bmm_operands(*size, trans_a, trans_b, dtype, seed=1)
+    g = torch.randn(size[0], size[1], size[3], device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        x = a.detach().to(dev).requires_grad_()
+        y = b.detach().to(dev).requires_grad_()
+        before = BMM.bmm.launches
+        BMM.bmm(x, y, trans_a, trans_b).backward(g.to(dev))
+        launched = BMM.bmm.launches - before
+        assert launched == (3 if dev == "cuda" else 0)
+        assert x.grad.dtype == x.dtype and y.grad.dtype == y.dtype
+        grads[dev] = (x.grad, y.grad)
+    # each gradient's Σ|·||·| scale: the same products over |operands|
+    ga = g.abs().cpu()
+    xa, ya = a.abs().float().cpu(), b.abs().float().cpu()
+    if not trans_a and not trans_b:
+        sa, sb = (BMM.bmm_plain(ga, ya, False, True),
+                  BMM.bmm_plain(xa, ga, True, False))
+    elif trans_a:
+        sa, sb = (BMM.bmm_plain(ya, ga, False, True),
+                  BMM.bmm_plain(xa, ga, False, False))
+    else:
+        sa, sb = (BMM.bmm_plain(ga, ya, False, False),
+                  BMM.bmm_plain(ga, xa, True, False))
+    slack = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    _bmm_check(grads["cuda"][0], grads["cpu"][0], sa, slack)
+    _bmm_check(grads["cuda"][1], grads["cpu"][1], sb, slack)

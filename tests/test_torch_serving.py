@@ -137,12 +137,17 @@ def test_params_from_flax_layout():
 
 
 _GUARD = """
+import importlib
+import pkgutil
 import sys
 import numpy as np
 import tgp_tpu_torch
-import tgp_tpu_torch.ops.kernels.segment_spmm
-import tgp_tpu_torch.ops.kernels._build
-import tgp_tpu_torch.models.convert
+mods = [m.name for m in pkgutil.walk_packages(tgp_tpu_torch.__path__,
+                                               'tgp_tpu_torch.')]
+for name in mods:
+    importlib.import_module(name)
+assert {'tgp_tpu_torch.ops.kernels.bmm', 'tgp_tpu_torch.models.prepare',
+        'tgp_tpu_torch.models.fast_dense'} <= set(mods), mods
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tgp_tpu'))
 assert not bad, bad
@@ -152,7 +157,8 @@ g = [(np.zeros((3, 2), np.float32), np.array([[0, 1], [1, 2]]))]
 for call in (lambda: tgp_tpu_torch.from_graphs(g),
              lambda: tgp_tpu_torch.Predictor(lambda b: b.x),
              lambda: tgp_tpu_torch.get_pooler('topk', in_channels=4),
-             lambda: tgp_tpu_torch.PoolingClassifier(None, 3, hidden=4)):
+             lambda: tgp_tpu_torch.PoolingClassifier(None, 3, hidden=4),
+             lambda: tgp_tpu_torch.DenseTopkClassifier(3, hidden=4)):
     try:
         call()
     except RuntimeError as e:

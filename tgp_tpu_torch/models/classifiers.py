@@ -1,6 +1,7 @@
 """End-to-end graph classifier (port of ``PoolingClassifier`` in
-``tgp_tpu/models/classifiers.py``, sparse ``GraphBatch`` input):
-GCN → pool → GCN → readout → MLP head."""
+``tgp_tpu/models/classifiers.py``): GCN → pool → GCN → readout → MLP head,
+on a sparse ``GraphBatch`` or a ``DenseGraphBatch`` (route small graphs to
+the dense side with :func:`~tgp_tpu_torch.models.prepare.prepare_batch`)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
-from tgp_tpu_torch.graph import GraphBatch
+from tgp_tpu_torch.graph import DenseGraphBatch
 from tgp_tpu_torch.mp.gcn import GCNConv
 from tgp_tpu_torch.reduce.global_reduce import global_reduce
 from tgp_tpu_torch.src import PoolingOutput
@@ -42,23 +43,35 @@ class PoolingClassifier(nn.Module):
     is the input feature width (default: ``hidden``).  Parameter names
     map one to one onto the flax tree (:func:`~tgp_tpu_torch.models.
     convert.params_from_flax`).
+
+    Dense input (the pooler must accept it): the features are cast to
+    ``compute_dtype``; ``pre_normalized`` says the adjacency is already
+    GCN-normalized (``prepare_batch(normalize=True)``), so the pre layers
+    skip normalization; ``fast_masks`` skips the per-layer padding masks;
+    ``use_kernel=True`` runs the adjacency products in the K3 kernel
+    (``None`` means False there, as in JAX).  These flags do not change the
+    sparse path.
     """
 
     def __init__(self, pooler: nn.Module, num_classes: int, hidden: int = 64,
                  num_pre_layers: int = 1, num_post_layers: int = 1,
                  readout: str = "sum", use_kernel: Optional[bool] = None,
                  compute_dtype: Optional[torch.dtype] = None,
-                 in_channels: Optional[int] = None, *,
+                 in_channels: Optional[int] = None,
+                 pre_normalized: bool = False, fast_masks: bool = False, *,
                  device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         in_channels = hidden if in_channels is None else in_channels
         self.readout = readout
+        self.compute_dtype = compute_dtype
         conv_kw = dict(use_kernel=use_kernel, dtype=compute_dtype,
-                       device=device, generator=generator)
+                       mask_output=not fast_masks, device=device,
+                       generator=generator)
         self.pre_convs = nn.ModuleList(
-            GCNConv(in_channels if i == 0 else hidden, hidden, **conv_kw)
+            GCNConv(in_channels if i == 0 else hidden, hidden,
+                    normalize=not pre_normalized, **conv_kw)
             for i in range(num_pre_layers))
         pooled_ch = hidden if num_pre_layers else in_channels
         self.pooler = pooler
@@ -70,18 +83,21 @@ class PoolingClassifier(nn.Module):
         self.dense_1 = _lecun_normal_linear(hidden, num_classes, generator)
         self.to(device)
 
-    def forward(self, batch: GraphBatch
-                ) -> Tuple[torch.Tensor, PoolingOutput]:
+    def forward(self, batch) -> Tuple[torch.Tensor, PoolingOutput]:
         x = batch.x
+        if (isinstance(batch, DenseGraphBatch)
+                and self.compute_dtype is not None):
+            x = x.to(self.compute_dtype)
         for conv in self.pre_convs:
             x = F.relu(conv(batch, x))
         out: PoolingOutput = self.pooler(batch.with_features(x))
-        pooled = out.graph
+        pooled = out.graph if out.graph is not None else out.dense
         h = pooled.x
         for conv in self.post_convs:
             h = F.relu(conv(pooled, h))
-        z = global_reduce(h.to(torch.float32), node_graph=pooled.node_graph,
-                          num_graphs=pooled.num_graphs,
-                          node_mask=pooled.node_mask, op=self.readout)
+        where = (dict(mask=pooled.mask) if out.graph is None else dict(
+            node_graph=pooled.node_graph, num_graphs=pooled.num_graphs,
+            node_mask=pooled.node_mask))
+        z = global_reduce(h.to(torch.float32), op=self.readout, **where)
         z = F.relu(self.dense_0(z))
         return self.dense_1(z), out

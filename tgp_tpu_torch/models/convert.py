@@ -1,5 +1,7 @@
-"""Carry flax weights of ``tgp_tpu``'s ``PoolingClassifier`` over to the
-port's module, so both packages compute the same function."""
+"""Carry flax weights of ``tgp_tpu``'s ``PoolingClassifier`` and
+``DenseTopkClassifier`` over to the port's modules, so both packages
+compute the same function.  A flax gradient tree has the same paths and
+maps the same way, so gradients compare leaf by leaf."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ _RULES = (
     (r"(pre|post)_conv_(\d+)/Dense_0/kernel", r"\1_convs.\2.lin.weight", True),
     (r"(pre|post)_conv_(\d+)/bias", r"\1_convs.\2.bias", False),
     (r"pooler/selector/weight", r"pooler.selector.weight", False),
+    (r"p", r"p", False),  # DenseTopkClassifier's selector projection
     (r"Dense_([01])/kernel", r"dense_\1.weight", True),
     (r"Dense_([01])/bias", r"dense_\1.bias", False),
 )
@@ -31,11 +34,11 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map a flax ``PoolingClassifier`` parameter tree (``{"params":
-    ...}`` or its inner dict; leaves as numpy or JAX arrays) onto a
-    ``state_dict`` for :class:`~tgp_tpu_torch.models.classifiers.
-    PoolingClassifier`.  Dense kernels (``[in, out]``) are transposed for
-    ``nn.Linear``.  Raises on a leaf it cannot place."""
+    """Map a flax ``PoolingClassifier`` or ``DenseTopkClassifier``
+    parameter (or gradient) tree (``{"params": ...}`` or its inner dict;
+    leaves as numpy or JAX arrays) onto a ``state_dict`` of the port's
+    module of the same name.  Dense kernels (``[in, out]``) are transposed
+    for ``nn.Linear``.  Raises on a leaf it cannot place."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     out = {}

@@ -1,7 +1,11 @@
-"""GCN message passing on a sparse :class:`GraphBatch` (port of
-``tgp_tpu/mp/gcn.py``: ``GCNConv`` and ``gcn_norm``).
+"""GCN message passing (port of ``tgp_tpu/mp/gcn.py``: ``GCNConv``,
+``gcn_norm`` and ``gcn_norm_dense``).
 
-Three branches, chosen as in the JAX layer:
+On a :class:`DenseGraphBatch` the layer is one batched ``[B,N,N]@[B,N,F]``
+product: the K3 kernel (:func:`~tgp_tpu_torch.ops.kernels.bmm.bmm`, f32
+out) with ``use_kernel=True``, else ``torch.matmul`` with the JAX einsum's
+dtype rule.  On a sparse :class:`GraphBatch`, three branches, chosen as in
+the JAX layer:
 
 * **static CSR** (receiver-sorted batch with the collator's ``row_ptr``,
   kernel regime): both ``D^{-1/2}`` factors fold into node space and the
@@ -26,7 +30,7 @@ import torch
 from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
-from tgp_tpu_torch.graph import GraphBatch
+from tgp_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from tgp_tpu_torch.ops.segment import segment_sum
 from tgp_tpu_torch.ops.sparse import (
     add_remaining_self_loops,
@@ -35,9 +39,38 @@ from tgp_tpu_torch.ops.sparse import (
     use_kernel_spmm,
 )
 
-__all__ = ["GCNConv", "gcn_norm"]
+__all__ = ["GCNConv", "gcn_norm", "gcn_norm_dense"]
 
 Tensor = torch.Tensor
+
+
+def _self_loops_dense(adj: Tensor, mask: Tensor) -> Tensor:
+    """``A + I`` on valid nodes only."""
+    eye = torch.eye(adj.shape[-1], dtype=adj.dtype, device=adj.device)
+    return adj + eye * mask.to(adj.dtype)[:, :, None]
+
+
+def _sym_norm_dense(adj: Tensor) -> Tensor:
+    """``D^{-1/2} A D^{-1/2}`` with degrees from ``|A|`` (clamped at
+    1e-12), in ``adj``'s dtype."""
+    dinv = torch.rsqrt(torch.clamp(adj.abs().sum(-1), min=1e-12))
+    return dinv[..., :, None] * adj * dinv[..., None, :]
+
+
+def gcn_norm_dense(dense: DenseGraphBatch, *, add_self_loops: bool = True,
+                   adj_dtype: Optional[torch.dtype] = None
+                   ) -> DenseGraphBatch:
+    """GCN-normalize a dense adjacency once, outside the train step:
+    ``D^{-1/2}(A+I)D^{-1/2}`` on valid nodes, abs degrees, optionally cast
+    to ``adj_dtype`` (bf16 halves the ``[B,N,N]`` traffic).  Pair with
+    ``GCNConv(normalize=False)`` / ``pre_normalized=True``."""
+    adj = dense.adj
+    if add_self_loops:
+        adj = _self_loops_dense(adj, dense.mask)
+    adj = _sym_norm_dense(adj)
+    if adj_dtype is not None:
+        adj = adj.to(adj_dtype)
+    return dense.replace(adj=adj)
 
 
 def gcn_norm(batch: GraphBatch, add_self_loops: bool = True):
@@ -73,21 +106,29 @@ def _dinv(deg: Tensor) -> Tensor:
 
 
 class GCNConv(nn.Module):
-    """GCN layer ``X' = D^{-1/2}(A+I)D^{-1/2} X W + b`` on a sparse batch.
+    """GCN layer ``X' = D^{-1/2}(A+I)D^{-1/2} X W + b``.
 
-    ``use_kernel``: ``None`` applies the regime map
+    Sparse input: ``use_kernel``: ``None`` applies the regime map
     (:func:`~tgp_tpu_torch.ops.sparse.use_kernel_spmm`: sorted, E ≥ 2¹⁸,
     CUDA); ``True`` forces the sorted branches on a sorted batch (their
     kernels run their plain versions on CPU tensors); ``False`` forces the
     generic branch.  ``dtype``: matmul and SpMM compute dtype (weights stay
     f32), cast like flax's ``nn.Dense(dtype=...)``: input and weight in
     ``dtype``, output in ``dtype``; the f32 bias then promotes the output.
+
+    Dense input: ``normalize`` adds self-loops on valid nodes and
+    normalizes the adjacency in its own dtype (False when it is
+    pre-normalized); ``use_kernel=True`` runs the K3 kernel (operands
+    rounded to bf16, f32 out), anything else ``torch.matmul`` of the
+    adjacency cast to ``h``'s dtype (f32 out without ``dtype``, else
+    ``dtype`` out); ``mask_output`` zeroes padding rows.
     """
 
     def __init__(self, in_channels: int, out_channels: int, *,
                  add_self_loops: bool = True, use_bias: bool = True,
                  use_kernel: Optional[bool] = None,
                  dtype: Optional[torch.dtype] = None,
+                 normalize: bool = True, mask_output: bool = True,
                  device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -95,6 +136,8 @@ class GCNConv(nn.Module):
         self.add_self_loops = add_self_loops
         self.use_kernel = use_kernel
         self.dtype = dtype
+        self.normalize = normalize
+        self.mask_output = mask_output
         self.lin = nn.Linear(in_channels, out_channels, bias=False)
         nn.init.xavier_uniform_(self.lin.weight, generator=generator)
         self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
@@ -106,26 +149,49 @@ class GCNConv(nn.Module):
         ct = self.dtype or torch.promote_types(x.dtype, w.dtype)
         return torch.nn.functional.linear(x.to(ct), w.to(ct))
 
-    def forward(self, batch: GraphBatch, x: Optional[Tensor] = None
-                ) -> Tensor:
+    def forward(self, batch, x: Optional[Tensor] = None) -> Tensor:
         if x is None:
             x = batch.x
         h = self._linear(x)
-        want = self.use_kernel
-        if want is None:
-            want = use_kernel_spmm(batch.num_edges, batch.edges_sorted,
-                                   h.device)
-        if want and batch.edges_sorted:
-            if batch.row_ptr is not None:
-                out = self._csr(batch, h)
-            else:
-                out = self._sorted(batch, h)
+        if isinstance(batch, DenseGraphBatch):
+            out = self._dense(batch, h)
         else:
-            s, r, w = gcn_norm(batch, self.add_self_loops)
-            out = spmm(s, r, w, h, batch.num_nodes)
-        out = torch.where(batch.node_mask[:, None], out, 0.0)
+            want = self.use_kernel
+            if want is None:
+                want = use_kernel_spmm(batch.num_edges, batch.edges_sorted,
+                                       h.device)
+            if want and batch.edges_sorted:
+                if batch.row_ptr is not None:
+                    out = self._csr(batch, h)
+                else:
+                    out = self._sorted(batch, h)
+            else:
+                s, r, w = gcn_norm(batch, self.add_self_loops)
+                out = spmm(s, r, w, h, batch.num_nodes)
+            out = torch.where(batch.node_mask[:, None], out, 0.0)
         if self.bias is not None:
             out = out + self.bias
+        return out
+
+    def _dense(self, batch: DenseGraphBatch, h: Tensor) -> Tensor:
+        """Dense branch (``gcn.py:190-216``): one batched adjacency
+        product."""
+        adj = batch.adj
+        if self.normalize:
+            if self.add_self_loops:
+                adj = _self_loops_dense(adj, batch.mask)
+            adj = _sym_norm_dense(adj)
+        if self.use_kernel:
+            from tgp_tpu_torch.ops.kernels.bmm import bmm
+
+            out = bmm(adj.contiguous(), h.contiguous())
+        else:
+            # the adjacency takes h's dtype; f32 h gives an f32 product and
+            # bf16 h (dtype=bf16) a bf16 one, as the JAX einsum's
+            # preferred_element_type does
+            out = torch.matmul(adj.to(h.dtype), h)
+        if self.mask_output:
+            out = torch.where(batch.mask[..., None], out, 0.0)
         return out
 
     def _csr(self, batch: GraphBatch, h: Tensor) -> Tensor:

@@ -25,8 +25,9 @@ are shared with one more warp per further chunk of that many edges.
 Dispatch is by where the tensors lie: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises — there is no
 fallback.  Each wrapper counts its launches in ``<wrapper>.launches``.
-Gradients come with the training slice: until then the CUDA path raises
-on inputs that require grad.
+Gradients come with the sparse training slice (K1's backward over the
+``*_t`` layout, the ``d_w`` SDDMM): until then the CUDA path raises on
+inputs that require grad.
 """
 
 from __future__ import annotations
@@ -138,8 +139,8 @@ def _launch_csr(x, idx, w, row_ptr, num_rows):
         raise ValueError(f"x shape {tuple(x.shape)} exceeds int32 indexing")
     if any(t is not None and t.requires_grad for t in (x, w)):
         raise NotImplementedError(
-            "the CUDA SpMM has no backward yet (training slice): call it "
-            "under torch.no_grad() / torch.inference_mode()")
+            "the CUDA SpMM has no backward yet (sparse training slice): "
+            "call it under torch.no_grad() / torch.inference_mode()")
     _check_vector("row_ptr", row_ptr, torch.int32, dev, num_rows + 1)
     if idx is not None:
         _check_vector("idx", idx, torch.int32, dev)

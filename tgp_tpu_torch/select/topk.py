@@ -1,10 +1,13 @@
-"""Top-k selection on a sparse batch (port of the sparse parts of
-``tgp_tpu/select/topk.py``).
+"""Top-k selection (port of ``tgp_tpu/select/topk.py``).
 
-Scores are ranked within each graph (:func:`~tgp_tpu_torch.ops.segment.
-segment_topk_rank`); node *i* is kept iff ``rank < ceil(ratio · n_g)`` and
-becomes supernode ``g_i · Kmax + rank_i`` in a graph-major static id space
-of ``B · Kmax`` slots (``Kmax = ceil(ratio · max_nodes)``).
+Sparse batch: scores are ranked within each graph (:func:`~tgp_tpu_torch.
+ops.segment.segment_topk_rank`); node *i* is kept iff ``rank < ceil(ratio ·
+n_g)`` and becomes supernode ``g_i · Kmax + rank_i`` in a graph-major
+static id space of ``B · Kmax`` slots (``Kmax = ceil(ratio · max_nodes)``).
+
+Dense batch: a per-graph top-k over the padded ``[B, N]`` scores
+(:func:`dense_topk_indices`), ties broken toward the lower index as
+``jax.lax.top_k`` does, with a scatter-free gradient for the score gate.
 """
 
 from __future__ import annotations
@@ -16,13 +19,14 @@ import torch
 from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
-from tgp_tpu_torch.graph import GraphBatch
+from tgp_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from tgp_tpu_torch.ops.segment import (segment_max, segment_softmax,
                                        segment_topk_rank)
 from tgp_tpu_torch.select.base import SelectOutput
 from tgp_tpu_torch.utils.activations import resolve_activation
 
-__all__ = ["topk_budget", "topk_select_from_scores", "TopkSelect"]
+__all__ = ["topk_budget", "topk_select_from_scores", "dense_topk_indices",
+           "dense_topk_select_output", "TopkSelect"]
 
 Tensor = torch.Tensor
 
@@ -32,6 +36,80 @@ def topk_budget(ratio: Union[int, float], max_nodes: int) -> int:
     if isinstance(ratio, int) and ratio >= 1:
         return min(ratio, max_nodes)
     return max(int(math.ceil(ratio * max_nodes)), 1)
+
+
+class _TopkValues(torch.autograd.Function):
+    """``top_scores`` (= ``ranked`` gathered at ``idx``) as they are, with
+    the gradient of the gather as a one-hot contraction (``_topk_values_vjp``,
+    ``select/topk.py:34-66``).  ``top_scores`` gets a zero cotangent."""
+
+    @staticmethod
+    def forward(ctx, ranked, idx, top_scores):
+        ctx.save_for_backward(idx)
+        ctx.n = ranked.shape[1]
+        return top_scores.view_as(top_scores)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        ar = torch.arange(ctx.n, dtype=idx.dtype, device=idx.device)
+        onehot = (idx[:, :, None] == ar[None, None, :]).to(torch.float32)
+        # one 0/1 term per output: exact in f32 (TF32 off)
+        d_ranked = torch.einsum("bk,bkn->bn", g.to(torch.float32), onehot)
+        return d_ranked.to(g.dtype), None, torch.zeros_like(g)
+
+
+def dense_topk_indices(score: Tensor, mask: Tensor,
+                       ratio: Union[int, float],
+                       min_score: Optional[float] = None):
+    """Per-graph top-k over the padded ``[B, N]`` score matrix.
+
+    ``min_score``: keep nodes with ``score > min(max_g − 1e-7,
+    min_score)`` (at least the top node of each graph survives) and a slot
+    budget of ``N``.  Returns ``(idx [B,K], slot_mask [B,K], gate [B,K])``:
+    kept-node indices, score-descending with ties toward the lower index
+    (a stable sort, as ``jax.lax.top_k`` orders them); slot validity, a
+    prefix of each row; and the score gate, 0 on invalid slots."""
+    B, N = score.shape
+    neg = torch.finfo(score.dtype).min
+    ranked = torch.where(mask, score, neg)
+    K = N if min_score is not None else topk_budget(ratio, N)
+    srt = torch.sort(ranked.detach(), dim=-1, descending=True, stable=True)
+    top_scores, idx = srt.values[:, :K], srt.indices[:, :K]
+    if min_score is not None:
+        thr = torch.clamp(top_scores[:, :1] - 1e-7, max=min_score)
+        slot_mask = top_scores > thr
+    else:
+        n_g = mask.sum(-1)
+        if isinstance(ratio, int) and ratio >= 1:
+            k_g = torch.clamp(n_g, max=ratio)
+        else:
+            k_g = torch.clamp(torch.ceil(ratio * n_g.to(torch.float32)),
+                              min=1).to(torch.int64)
+        ar = torch.arange(K, device=score.device)
+        slot_mask = ar[None, :] < k_g[:, None]
+    slot_mask = slot_mask & (top_scores > neg)  # empty graphs stay empty
+    gate = torch.where(slot_mask, _TopkValues.apply(ranked, idx, top_scores),
+                       0.0)
+    return idx, slot_mask, gate
+
+
+def dense_topk_select_output(score: Tensor, mask: Tensor,
+                             ratio: Union[int, float],
+                             min_score: Optional[float] = None,
+                             s_inv_op: str = "transpose") -> SelectOutput:
+    """Dense-layout :class:`SelectOutput` of a top-k selection: ``idx``,
+    ``slot_mask`` and ``gate`` in ``extras`` for the pooling path
+    (:func:`tgp_tpu_torch.poolers.topk.dense_topk_apply`); ``s[b, n, k] =
+    gate[b, k] · 1[idx[b, k] = n]`` is built from them when read."""
+    B = score.shape[0]
+    idx, slot_mask, gate = dense_topk_indices(score, mask, ratio, min_score)
+    K = idx.shape[1]
+    return SelectOutput(
+        in_mask=mask, cluster_mask=slot_mask,
+        extras={"idx": idx, "slot_mask": slot_mask, "gate": gate},
+        num_clusters=B * K, num_graphs=B, max_clusters=K, partial=True,
+        s_inv_op=s_inv_op)
 
 
 def topk_select_from_scores(score: Tensor, batch: GraphBatch,
@@ -111,10 +189,10 @@ class TopkSelect(nn.Module):
             self.weight = None
         self.to(device)
 
-    def raw_scores(self, x: Tensor) -> Tensor:
+    def raw_scores(self, x: Tensor, dense: bool = False) -> Tensor:
         """Row-wise pre-activation projection ``X·p/‖p‖``."""
         if self.weight is None:
-            return x[..., 0] if x.dim() > 1 else x
+            return x[..., 0] if x.dim() > (2 if dense else 1) else x
         w = self.weight
         score = x.to(w.dtype) @ w
         if self.min_score is None:
@@ -122,8 +200,18 @@ class TopkSelect(nn.Module):
                                         min=1e-12)
         return score
 
-    def forward(self, batch: GraphBatch) -> SelectOutput:
-        score = self.raw_scores(batch.x)
+    def forward(self, batch) -> SelectOutput:
+        dense = isinstance(batch, DenseGraphBatch)
+        score = self.raw_scores(batch.x, dense)
+        if dense:
+            if self.min_score is None:
+                score = resolve_activation(self.act)(score)
+            else:
+                neg = torch.finfo(score.dtype).min
+                score = torch.softmax(torch.where(batch.mask, score, neg),
+                                      dim=-1)
+            return dense_topk_select_output(score, batch.mask, self.ratio,
+                                            self.min_score, self.s_inv_op)
         if self.min_score is None:
             score = resolve_activation(self.act)(score)
         else:

@@ -1,6 +1,5 @@
-"""SRC(L) core for sparse poolers (port of ``tgp_tpu/src.py``:
-``PoolingOutput`` and ``SRCPooling``; the dense base comes with the dense
-regime)."""
+"""SRC(L) core (port of ``tgp_tpu/src.py``: ``PoolingOutput`` and
+``SRCPooling``; ``DenseSRCPooling`` comes with the dense pooler family)."""
 
 from __future__ import annotations
 
@@ -11,7 +10,7 @@ import torch
 from torch import nn
 
 from tgp_tpu_torch.connect.base import ConnectConfig, sparse_connect
-from tgp_tpu_torch.graph import GraphBatch
+from tgp_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from tgp_tpu_torch.lift.base import base_lift
 from tgp_tpu_torch.reduce.base import base_reduce
 from tgp_tpu_torch.select.base import SelectOutput
@@ -23,17 +22,39 @@ Tensor = torch.Tensor
 
 @dataclass(frozen=True)
 class PoolingOutput:
-    """Result of one pooling step: the selection, the pooled sparse batch
-    and the named auxiliary losses."""
+    """Result of one pooling step: the selection, the pooled sparse or
+    dense batch and the named auxiliary losses."""
 
     so: SelectOutput
     graph: Optional[GraphBatch] = None
+    dense: Optional[DenseGraphBatch] = None
     loss: Dict[str, Tensor] = field(default_factory=dict)
+
+    @property
+    def x(self) -> Tensor:
+        return self.graph.x if self.graph is not None else self.dense.x
+
+    @property
+    def mask(self) -> Tensor:
+        """Pooled-node validity."""
+        return (self.graph.node_mask if self.graph is not None
+                else self.dense.mask)
+
+    def loss_sum(self) -> Tensor:
+        """Σ of the auxiliary losses (added to the task loss in training);
+        a 0-d zero on the pooled features' device when there are none."""
+        if not self.loss:
+            return torch.zeros((), device=self.x.device)
+        return sum(self.loss.values())
 
 
 class SRCPooling(nn.Module):
     """Base class for sparse-world poolers: the shared Reduce / Connect /
-    Lift plumbing.  ``lift_op``/``lift_red_op`` configure the lift."""
+    Lift plumbing.  ``lift_op``/``lift_red_op`` configure the lift.
+    ``ACCEPTS_DENSE_BATCH``: the pooler's ``forward`` takes a
+    :class:`DenseGraphBatch` (the gate of ``prepare_batch``)."""
+
+    ACCEPTS_DENSE_BATCH = False
 
     def __init__(self, lift_op: str = "precomputed",
                  lift_red_op: str = "sum"):
