@@ -12,9 +12,13 @@ each of which raises on failure:
 3. every kernel against its plain PyTorch version at its path's shapes,
    with times: the kernel, the plain version, the least time the card
    could take (bytes over 3.35 TB/s or flops over the peak of the
-   kernel's arithmetic — 67 TFLOP/s f32 for the SpMM, 989 TFLOP/s bf16
-   tensor cores for the batched product — the larger), and one PyTorch
-   library call computing the same function;
+   kernel's arithmetic — 67 TFLOP/s f32 for the SpMMs and the SDDMM,
+   989 TFLOP/s bf16 tensor cores for the batched product — the larger),
+   and one PyTorch library call computing the same function.  K1 and K2
+   (and K1's backward, ``d_h`` over the transpose layout) run at the
+   serving graph's shapes; K4, K5 and K6 on the round-3 banded graph of
+   ``scripts/exp_r3_banded.py`` (N = 65,536, E = 1,048,576, F = 128,
+   |s − r| ≤ 448, window 1152);
 4. serving: ``Predictor`` over ``PoolingClassifier`` (GCN → top-k → GCN →
    sum readout → MLP head, hidden 128, bf16) on full-size requests (one
    graph each: 65,536 nodes, 1,000,000 random edges, 128 features), with
@@ -28,7 +32,18 @@ each of which raises on failure:
 6. the documented default path on the same graphs: ``prepare_batch`` +
    ``PoolingClassifier(pre_normalized=True)`` trains with the kernel and
    with ``torch.matmul`` in turns (kernel, matmul, matmul, kernel; 3 steps
-   a turn).
+   a turn);
+7. sparse training (``bench.py::bench_jax_large`` at full width: one
+   graph, 65,536 nodes, 1,000,000 random edges, 128 features, collated
+   with ``sort_edges=True``): the served model trains 20 Adam steps on
+   label 1; the CSR SpMM kernel must launch 5 times a step (3 forward,
+   2 backward), and step one's loss and gradients are held against the
+   same model and graph on the CPU;
+8. the locality path on the union of the dense graphs (16,384 nodes):
+   ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
+   engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
+   ``sddmm_banded`` (K6) on the same plan, each held against the plain
+   product of the graph in its own order.
 
 The next-to-last line of output is a JSON object ``{"kernels": [...]}``;
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -64,6 +79,17 @@ DENSE_STEPS, DEFAULT_STEPS = 10, 3
 K3_REPLACES = "tgp_tpu/ops/pallas/bmm.py:37"  # _kernel / bmm_pallas
 K3_SOURCE = "tgp_tpu_torch/csrc/bmm.cu"
 K3_REL_TOL = 1e-5  # of Σₖ|a||b|: same bf16 products, other f32 sum order
+# K1's backward, K4, K5, K6: 1e-5 of Σ|terms| (other f32 sum orders), plus
+# one bf16 rounding (2⁻⁷ of the value) where the output is bf16
+REL_TOL, BF16_ULP = 1e-5, 2.0 ** -7
+K4_REPLACES = "tgp_tpu/ops/pallas/segment_spmm.py:38"  # sorted_segment_sum_pallas
+K5_REPLACES = "tgp_tpu/ops/pallas/segment_spmm.py:387"  # _banded_kernel
+K6_REPLACES = "tgp_tpu/ops/pallas/sddmm.py:49"  # _kernel / banded_sddmm_pallas
+K6_SOURCE = "tgp_tpu_torch/csrc/sddmm.cu"
+# the round-3 banded graph (scripts/exp_r3_banded.py:21,35-45, BW = 448)
+BAND_NODES, BAND_EDGES, BAND_BW = 65_536, 1_048_576, 448
+# sparse training: bench.py::bench_jax_large (STEPS_LARGE steps, label 1)
+SPARSE_STEPS, K1_PER_STEP = 20, 5
 # step one of training, GPU against the CPU's plain versions (bf16):
 LOSS_REL_TOL, GRAD_REL_TOL = 2e-2, 5e-2  # loss; each leaf's max |value|
 
@@ -92,14 +118,31 @@ def dense_graphs(seed: int = 0):
     return graphs, labels
 
 
+def banded_graph():
+    """``scripts/exp_r3_banded.py``'s graph: receiver-sorted, |s − r| ≤
+    448, normal weights; ``(s, r, w, row_ptr, x)`` as numpy."""
+    rng = np.random.default_rng(0)
+    r = np.sort(rng.integers(0, BAND_NODES, BAND_EDGES)).astype(np.int32)
+    s = np.clip(r + rng.integers(-BAND_BW, BAND_BW + 1, BAND_EDGES), 0,
+                BAND_NODES - 1).astype(np.int32)
+    w = rng.normal(size=BAND_EDGES).astype(np.float32)
+    counts = np.bincount(r, minlength=BAND_NODES)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    x = rng.normal(size=(BAND_NODES, FEATURES)).astype(np.float32)
+    return s, r, w, row_ptr, x
+
+
 def _wrappers():
-    """Every kernel wrapper of the port, by name (each counts its
+    """Every kernel wrapper of the port, by route name (each counts its
     launches in ``.launches``)."""
-    from tgp_tpu_torch.ops.kernels import bmm, segment_spmm
+    from tgp_tpu_torch.ops.kernels import bmm, sddmm, segment_spmm
 
     return {"spmm_csr": segment_spmm.spmm_csr,
             "segment_sum_sorted": segment_spmm.segment_sum_sorted,
-            "bmm": bmm.bmm}
+            "bmm": bmm.bmm,
+            "sorted_segment_sum": segment_spmm.sorted_segment_sum,
+            "spmm_banded": segment_spmm.banded_sorted_spmm,
+            "sddmm_banded": sddmm.banded_sddmm}
 
 
 def reset_counts() -> None:
@@ -149,16 +192,18 @@ def host_us(fn) -> float:
 
 
 def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
-               peak, scale, flush, note=None):
+               peak, scale, flush, note=None, slack=0.0):
     """Hold one kernel mode against its plain version, then time all
     three.  Tolerance: |kernel − plain| ≤ rel_tol · scale (per element:
-    Σ|w·x| of the row, Σₖ|a||b| of the product).  ``peak``: flop/s of the
-    kernel's arithmetic on this card."""
+    Σ|w·x| of the row, Σₖ|a||b| of the product) + slack · |plain| (one
+    rounding of the output).  ``peak``: flop/s of the kernel's arithmetic
+    on this card."""
     got = kernel()
     torch.cuda.synchronize()
     ref = plain()
-    err = (got.float() - ref.float()).abs()
-    max_abs = float(err.max())
+    err = ((got.float() - ref.float()).abs()
+           - slack * ref.float().abs()).clamp(min=0)
+    max_abs = float((got.float() - ref.float()).abs().max())
     worst = float((err / (scale + 1e-30)).max())
     if not (torch.isfinite(got.float()).all() and worst <= rel_tol):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -214,12 +259,33 @@ def phase_kernels(batch):
         isz = x.element_size()
         name = f"K1 spmm_csr F={F} {str(dtype).split('.')[-1]}"
         modes[name] = check_mode(
-            name, lambda: K.spmm_csr(x, weights, idx, row_ptr, N),
+            name, lambda: K.spmm_csr(x, weights, None, idx, None, row_ptr,
+                                 None, None, None, N),
             lambda: K.spmm_csr_plain(x, weights, idx, row_ptr, N),
             sparse_mm(weights, idx, x),
             rel_tol=1e-2 if dtype == torch.bfloat16 else 1e-4,
             bound_bytes=csr_bytes + 2 * N * F * isz, flops=2 * E * F,
             peak=FP32_FLOPS_PER_S, scale=scale, flush=flush)
+
+    # K1's backward: d_h = Aᵀg over the sender-sorted transpose layout, as
+    # the gradient runs it (w_t rounded to the bf16 cotangent's dtype)
+    g = torch.randn(N, FEATURES, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w_t = batch.edge_weight_t.to(torch.bfloat16).float()
+    idx_t = batch.receivers_t.clamp(0, N - 1)
+    rp_t = batch.row_ptr_t
+    scale = K.spmm_csr_plain(g.float().abs(), w_t.abs(), idx_t, rp_t, N)
+    a_t = torch.sparse_csr_tensor(rp_t, idx_t, w_t.to(torch.bfloat16),
+                                  size=(rows, N), check_invariants=False)
+    name = "K1 spmm_csr backward d_h F=128 bfloat16"
+    modes[name] = check_mode(
+        name, lambda: K.spmm_csr(g, w_t, None, idx_t, None, rp_t, None,
+                                 None, None, N),
+        lambda: K.spmm_csr_plain(g, w_t, idx_t, rp_t, N),
+        lambda: torch.sparse.mm(a_t, g), rel_tol=REL_TOL, slack=BF16_ULP,
+        bound_bytes=csr_bytes + 2 * N * FEATURES * 2,
+        flops=2 * E * FEATURES, peak=FP32_FLOPS_PER_S, scale=scale,
+        flush=flush)
 
     # K2 mode: receiver-sorted messages [E, F], no gather, no weight
     msgs = (torch.randn(E, FEATURES, generator=gen, device="cuda")
@@ -235,6 +301,73 @@ def phase_kernels(batch):
         sparse_mm(ones, cols, msgs), rel_tol=1e-2,
         bound_bytes=4 * (rows + 1) + 2 * E * FEATURES + 2 * N * FEATURES,
         flops=E * FEATURES, peak=FP32_FLOPS_PER_S, scale=scale, flush=flush)
+    del flush
+    return modes
+
+
+def phase_kernels_banded():
+    """K4, K5 and K6 on the round-3 banded graph: K4 sums its gathered
+    bf16 messages, K5 gathers bf16 x through its 1152-row windows, K6 dots
+    f32 rows of two matrices (every 512-edge chunk's ids fit its window,
+    so every edge is computed)."""
+    from tgp_tpu_torch.ops.kernels import sddmm as SD
+    from tgp_tpu_torch.ops.kernels import segment_spmm as K
+    from tgp_tpu_torch.ops.ordering import choose_banded_window
+
+    s, r, w, rp, x = (torch.tensor(a, device="cuda")
+                      for a in banded_graph())
+    N, E, F = BAND_NODES, BAND_EDGES, FEATURES
+    window = choose_banded_window(BAND_BW)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    bf16 = torch.bfloat16
+    xb = x.to(bf16)
+    modes = {}
+
+    def csr(cols, values, n_cols):
+        return torch.sparse_csr_tensor(rp, cols, values, size=(N, n_cols),
+                                       check_invariants=False)
+
+    msgs = (xb[s.long()].float() * w[:, None]).to(bf16)
+    a_k4 = csr(torch.arange(E, dtype=torch.int32, device="cuda"),
+               torch.ones(E, dtype=bf16, device="cuda"), E)
+    name = "K4 sorted_segment_sum F=128 bfloat16"
+    modes[name] = check_mode(
+        name, lambda: K.sorted_segment_sum(msgs, r, rp, N),
+        lambda: K.sorted_segment_sum_plain(msgs, r, rp, N),
+        lambda: torch.sparse.mm(a_k4, msgs), rel_tol=REL_TOL,
+        slack=BF16_ULP, bound_bytes=4 * (N + 1) + 2 * E * F + 2 * N * F,
+        flops=E * F, peak=FP32_FLOPS_PER_S,
+        scale=K.sorted_segment_sum_plain(msgs.float().abs(), r, rp, N),
+        flush=flush)
+
+    a_k5 = csr(s, w.to(bf16), N)
+    name = f"K5 banded_sorted_spmm F=128 bfloat16 window={window}"
+    modes[name] = check_mode(
+        name, lambda: K.banded_sorted_spmm(xb, s, rp, w, N, window=window),
+        lambda: K.banded_sorted_spmm_plain(xb, s, rp, w, N, window=window),
+        lambda: torch.sparse.mm(a_k5, xb), rel_tol=REL_TOL, slack=BF16_ULP,
+        bound_bytes=4 * (2 * E + N + 1) + 2 * 2 * N * F, flops=2 * E * F,
+        peak=FP32_FLOPS_PER_S,
+        scale=K.banded_sorted_spmm_plain(xb.float().abs(), s, rp, w.abs(),
+                                         N, window=window),
+        flush=flush)
+
+    b = torch.randn(N, F, generator=gen, device="cuda")
+    # the library's SDDMM: (b @ xᵀ) sampled at (r, s), one value per edge;
+    # its pattern lists each row's columns in ascending order
+    order = torch.argsort(r.long() * N + s.long())
+    pattern = csr(s[order], torch.zeros(E, device="cuda"), N)
+    x_t = x.t().contiguous()
+    name = f"K6 banded_sddmm F=128 float32 window={window}"
+    modes[name] = check_mode(
+        name, lambda: SD.banded_sddmm(x, b, s, r, window=window),
+        lambda: SD.banded_sddmm_plain(x, b, s, r, window=window),
+        lambda: torch.sparse.sampled_addmm(pattern, b, x_t, beta=0.0),
+        rel_tol=REL_TOL, bound_bytes=4 * 3 * E + 4 * 2 * N * F,
+        flops=2 * E * F, peak=FP32_FLOPS_PER_S,
+        scale=SD.banded_sddmm_plain(x.abs(), b.abs(), s, r, window=window),
+        flush=flush, note="torch.sparse.sampled_addmm (cuSPARSE SDDMM)")
     del flush
     return modes
 
@@ -293,11 +426,11 @@ def phase_kernels_k3(adj):
     return modes
 
 
-def build_model(device, *, pool_mode="auto", use_kernel=None):
+def build_model(device, *, pool_mode="auto", use_kernel=None, seed=0):
     """The served model, its weights drawn from one seeded generator."""
     from tgp_tpu_torch import PoolingClassifier, get_pooler
 
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator().manual_seed(seed)
     pooler = get_pooler("topk", in_channels=HIDDEN, ratio=0.5,
                         pool_mode=pool_mode, device=device, generator=g)
     return PoolingClassifier(pooler, num_classes=CLASSES, hidden=HIDDEN,
@@ -488,29 +621,10 @@ def phase_train_dense(card, dense, y, n_edges, profile: bool):
     print(f"[train_dense] {json.dumps(result)}", flush=True)
 
     if profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile as prof
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            for _ in range(3):
-                _train_step(model, opt, dense, y, aux=False)
-            torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        events = p.key_averages()
-        busy_ms = sum(e.self_device_time_total for e in events
-                      if e.device_type == DeviceType.CUDA
-                      and not e.is_user_annotation) / 1e3
-        print(events.table(sort_by="self_device_time_total", row_limit=30),
-              flush=True)
-        # the profiler slows the host: the idle share of an unprofiled
-        # step is 1 − (busy per step) / (median step time above)
-        prof_row = dict(steps=3, profiled_wall_ms=wall_ms,
-                        device_busy_ms=busy_ms,
-                        busy_ms_per_step=busy_ms / 3,
-                        idle_share=1 - busy_ms / 3 / med)
-        print(f"[train_dense profile] {json.dumps(prof_row)}", flush=True)
+        # the profiler slows the host: the idle share is taken against the
+        # unprofiled median step
+        _idle_profile(lambda: _train_step(model, opt, dense, y, aux=False),
+                      3, med, "train_dense")
     return result
 
 
@@ -551,8 +665,8 @@ def phase_train_default(card, graphs, labels):
         if not np.isfinite(losses).all():
             raise AssertionError(f"{route}: non-finite losses {losses}")
         launches = read_counts()
-        want = {"spmm_csr": 0, "segment_sum_sorted": 0,
-                "bmm": 4 * DEFAULT_STEPS if route == "kernel" else 0}
+        want = dict.fromkeys(launches, 0)
+        want["bmm"] = 4 * DEFAULT_STEPS if route == "kernel" else 0
         if launches != want:
             raise AssertionError(f"{route} route launched {launches}, "
                                  f"want {want}")
@@ -564,6 +678,206 @@ def phase_train_default(card, graphs, labels):
         result[route]["step_ms_median"] = statistics.median(
             result[route]["step_ms"])
     print(f"[train_default] {json.dumps(result)}", flush=True)
+    return result
+
+
+def _idle_profile(step, steps, med_ms, tag):
+    """Profile ``steps`` calls of ``step()`` and print the kernel table
+    and the device's busy time a step; the idle share of an unprofiled
+    step is 1 − (busy per step) / (its median time ``med_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = p.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3
+    print(events.table(sort_by="self_device_time_total", row_limit=30),
+          flush=True)
+    row = dict(steps=steps, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+               busy_ms_per_step=busy_ms / steps,
+               idle_share=1 - busy_ms / steps / med_ms)
+    print(f"[{tag} profile] {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_train_sparse(card, profile: bool):
+    """``bench.py::bench_jax_large`` on the card: the served model trains
+    SPARSE_STEPS Adam steps on one full-size graph (bf16, the CSR kernel
+    forward and backward, masked pooling), K1 counted every step, step one
+    held against the CPU."""
+    from tgp_tpu_torch import from_graphs
+
+    x, ei = request_graph(7)  # bench_jax_large's graph: default_rng(7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = from_graphs([(x, ei)], sort_edges=True, device="cuda")
+    torch.cuda.synchronize()
+    collate_ms = 1e3 * (time.perf_counter() - t0)
+    n_edges = int(batch.edge_mask.sum())
+    y = torch.tensor([1], device="cuda")
+    # the sum readout over 32,768 kept nodes puts the logits in the tens or
+    # hundreds, so a model whose top logit is already label 1 has a loss of
+    # 0 and nothing to compare: take the first seed whose loss is >= 1
+    for seed in range(16):
+        model = build_model("cuda", seed=seed)
+        with torch.no_grad():
+            logits, out = model(batch)
+        if float(torch.nn.functional.cross_entropy(logits, y)) >= 1.0:
+            break
+    else:
+        raise AssertionError("no seed in 0..15 gives label 1 a loss >= 1")
+    if out.so.extras.get("pool_mode") != "masked":
+        raise AssertionError("the training graph did not take masked pooling")
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    K1 = _wrappers()["spmm_csr"]
+
+    # the main path, counted: SPARSE_STEPS steps, K1 five times a step
+    reset_counts()
+    step_ms, losses, per_step = [], [], []
+    for i in range(SPARSE_STEPS):
+        before = K1.launches
+        if i == 0:  # step one keeps its gradients for the CPU check
+            def first():
+                out = _step_one_grads(model, batch, y)
+                opt.step()
+                return out
+
+            ms, (loss, grads0) = _timed_step(first)
+            loss0 = float(loss)
+            grads0 = {k: v.cpu() for k, v in grads0.items()}
+        else:
+            ms, loss = _timed_step(
+                lambda: _train_step(model, opt, batch, y, aux=False))
+        step_ms.append(ms)
+        losses.append(float(loss))
+        per_step.append(K1.launches - before)
+    launches = read_counts()
+    if per_step != [K1_PER_STEP] * SPARSE_STEPS:
+        raise AssertionError(f"K1 launches per step {per_step}, want "
+                             f"{K1_PER_STEP}")
+    if any(n for name, n in launches.items() if name != "spmm_csr"):
+        raise AssertionError(f"unexpected launches {launches}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses}")
+
+    # step one on the CPU: same weights and graph, plain versions
+    cpu = build_model("cpu", pool_mode="masked", use_kernel=True)
+    cpu.load_state_dict(init)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = _step_one_grads(cpu, batch.to("cpu"), y.cpu())
+    cpu_loss = float(cpu_loss)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(loss0 - cpu_loss) / abs(cpu_loss)
+    grad_err = {k: float((grads0[k] - g).abs().max()
+                         / max(float(g.abs().max()), 1e-30))
+                for k, g in cpu_grads.items()}
+    if loss_err > LOSS_REL_TOL or max(grad_err.values()) > GRAD_REL_TOL:
+        raise AssertionError(f"step one on the card vs the CPU: loss "
+                             f"{loss0} vs {cpu_loss}, gradient errors "
+                             f"{grad_err}")
+    med = statistics.median(step_ms)
+    result = dict(
+        card=card, nodes=batch.num_nodes, edges=n_edges,
+        edge_slots=batch.num_edges, seed=seed, steps=SPARSE_STEPS,
+        step_ms=step_ms,
+        step_ms_median=med, edges_per_s=n_edges / (med / 1e3),
+        collate_ms=collate_ms, losses=losses, launches=launches,
+        k1_launches_per_step=per_step, step1_loss=loss0,
+        step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
+        loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
+        grad_rel_tol=GRAD_REL_TOL, cpu_check_s=cpu_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[train_sparse] {json.dumps(result)}", flush=True)
+    if profile:
+        result["profile"] = _idle_profile(
+            lambda: _train_step(model, opt, batch, y, aux=False), 3, med,
+            "train_sparse")
+    return result
+
+
+def phase_locality(card, graphs):
+    """The locality path on the union of ``graphs`` (block-diagonal):
+    RCM plans, ``locality_spmm`` with the banded (K5) and default (K2)
+    engines, ``spmm_sorted`` (K4) and ``sddmm_banded`` (K6) on the plan,
+    each mapped back with ``inv`` and held against the plain product of the
+    graph in its own order; then each route's device time."""
+    from tgp_tpu_torch.ops.kernels.sddmm import sddmm_banded
+    from tgp_tpu_torch.ops.kernels.segment_spmm import spmm_sorted
+    from tgp_tpu_torch.ops.ordering import locality_spmm, plan_locality_spmm
+
+    offs = np.cumsum([0] + [x.shape[0] for x, _ in graphs])
+    ei = np.concatenate([e + o for (_, e), o in zip(graphs, offs)], 1)
+    x = np.concatenate([x for x, _ in graphs])
+    N = int(offs[-1])
+    t0 = time.perf_counter()
+    plans = {e: plan_locality_spmm(ei, N, engine=e, device="cuda")
+             for e in ("banded", "auto")}
+    plan_ms = 1e3 * (time.perf_counter() - t0) / 2
+    p = plans["auto"]
+    window = plans["banded"]["window"]
+    xp = torch.tensor(x[p["perm"]], device="cuda").to(torch.bfloat16)
+    runs = {
+        "locality_spmm banded": lambda: locality_spmm(plans["banded"], xp),
+        "locality_spmm auto": lambda: locality_spmm(p, xp),
+        "spmm_sorted": lambda: spmm_sorted(p["senders"], p["receivers"],
+                                           p["row_ptr"], p["edge_weight"],
+                                           xp, N),
+        "sddmm_banded": lambda: sddmm_banded(xp, xp, p["senders"],
+                                             p["receivers"], window=window),
+    }
+    # the main path, counted: each route once
+    reset_counts()
+    outs = {name: run() for name, run in runs.items()}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(spmm_banded=1, segment_sum_sorted=1, sorted_segment_sum=1,
+                sddmm_banded=1)
+    if launches != want:
+        raise AssertionError(f"locality launches {launches}, want {want}")
+
+    # the plain products, in the graph's own order
+    s, r = (torch.tensor(a, device="cuda").long() for a in ei)
+    xf = torch.tensor(x, device="cuda").to(torch.bfloat16).float()
+    ref = torch.zeros(N, FEATURES, device="cuda").index_add_(0, r, xf[s])
+    scale = torch.zeros(N, FEATURES, device="cuda").index_add_(
+        0, r, xf[s].abs())
+    inv = torch.tensor(p["inv"], device="cuda")
+    errs = {}
+    for name in ("locality_spmm banded", "locality_spmm auto",
+                 "spmm_sorted"):
+        got = outs[name].float()[inv]
+        slack = BF16_ULP if outs[name].dtype == torch.bfloat16 else 0.0
+        err = ((got - ref).abs() - slack * ref.abs()).clamp(min=0)
+        errs[name] = float((err / (scale + 1e-30)).max())
+    ps, pr = p["senders"].long(), p["receivers"].long()
+    xpf = xp.float()
+    dots = (xpf[ps] * xpf[pr]).sum(-1)
+    dot_scale = (xpf[ps].abs() * xpf[pr].abs()).sum(-1)
+    errs["sddmm_banded"] = float(((outs["sddmm_banded"] - dots).abs()
+                                  / (dot_scale + 1e-30)).max())
+    if max(errs.values()) > REL_TOL:
+        raise AssertionError(f"locality results vs the plain products: "
+                             f"{errs} > {REL_TOL}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ms = {name: median_ms(run, flush) for name, run in runs.items()}
+    del flush
+    result = dict(card=card, nodes=N, edges=int(ei.shape[1]),
+                  bandwidth=p["bandwidth"], window=window,
+                  engines={e: q["engine"] for e, q in plans.items()},
+                  plan_ms=plan_ms, launches=launches, rel_err=errs,
+                  rel_tol=REL_TOL, device_ms=ms)
+    print(f"[locality] {json.dumps(result)}", flush=True)
     return result
 
 
@@ -620,12 +934,16 @@ def main(argv=None) -> int:
     n_dense_edges = int(d_batch.edge_mask.sum())
     dense = gcn_norm_dense(to_dense(d_batch), adj_dtype=torch.bfloat16)
     k3_modes = phase_kernels_k3(dense.adj)
+    band_modes = phase_kernels_banded()
+    modes.update(band_modes)
 
     serving = phase_serving(card, graphs, batch, collate_ms, args.profile)
     train = phase_train_dense(card, dense,
                               torch.tensor(d_labels, device="cuda").long(),
                               n_dense_edges, args.profile)
     phase_train_default(card, d_graphs, d_labels)
+    sparse = phase_train_sparse(card, args.profile)
+    locality = phase_locality(card, d_graphs)
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -635,16 +953,27 @@ def main(argv=None) -> int:
                     bound_by=mode["bound_by"],
                     library_ms=mode["library_ms"])
 
+    loc = locality["launches"]
     kernels = [
-        entry("spmm_csr", SOURCE, REPLACES,
-              serving["launches"]["spmm_csr"],
+        entry("spmm_csr", SOURCE, REPLACES, sparse["launches"]["spmm_csr"],
               modes[f"K1 spmm_csr F={FEATURES} bfloat16"]),
+        entry("segment_sum_sorted", SOURCE, K2_REPLACES,
+              loc["segment_sum_sorted"],
+              modes[f"K2 segment_sum_sorted F={FEATURES} bfloat16"]),
         entry("bmm", K3_SOURCE, K3_REPLACES, train["launches"]["bmm"],
-              k3_modes["fwd pre"])]
+              k3_modes["fwd pre"]),
+        entry("sorted_segment_sum", SOURCE, K4_REPLACES,
+              loc["sorted_segment_sum"],
+              modes[f"K4 sorted_segment_sum F={FEATURES} bfloat16"]),
+        entry("spmm_banded", SOURCE, K5_REPLACES, loc["spmm_banded"],
+              next(m for k, m in band_modes.items() if k.startswith("K5"))),
+        entry("sddmm_banded", K6_SOURCE, K6_REPLACES, loc["sddmm_banded"],
+              next(m for k, m in band_modes.items() if k.startswith("K6")))]
     print(f"[modes] {json.dumps(list(modes.values()) + list(k3_modes.values()))}",
           flush=True)
-    print(f"K2 mode ({K2_REPLACES}) shares {SOURCE}; the serving path "
-          f"launched it {serving['launches']['segment_sum_sorted']} times",
+    print(f"K1 launches: serving {serving['launches']['spmm_csr']} for "
+          f"{REQUESTS} requests, sparse training "
+          f"{sparse['launches']['spmm_csr']} for {SPARSE_STEPS} steps",
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,8 @@
-"""The CUDA kernels of ``tgp_tpu_torch/csrc/`` (``segment_spmm.cu``,
-``bmm.cu``) against their plain PyTorch versions, on the card.  Without one
-the tests skip; on a GPU machine (which need not have JAX) run them alone:
+"""The CUDA kernels of ``tgp_tpu_torch/csrc/`` (``segment_spmm.cu`` in
+its K1, K2, K4 and windowed K5 modes and K1's backward, ``bmm.cu``,
+``sddmm.cu``) against their plain PyTorch versions, on the card.  Without
+one the tests skip; on a GPU machine (which need not have JAX) run them
+alone:
 
     python3 -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda_kernels.py
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from tgp_tpu_torch.ops.kernels import bmm as BMM
+from tgp_tpu_torch.ops.kernels import sddmm as SD
 from tgp_tpu_torch.ops.kernels import segment_spmm as K
 
 N_NODES = 150
@@ -44,6 +47,14 @@ def _csr_case(seed, F, n=N_NODES, e=900, n_pad=N_PAD_EDGES, hub=0):
                 w_t=w[perm], rp_t=rp_t, n=n)
 
 
+def _layout(c, make):
+    """``spmm_csr``'s arguments after ``h`` and before ``num_rows``
+    (``w, w_t, senders, receivers, row_ptr, receivers_t, senders_t,
+    row_ptr_t``), each made by ``make`` from the case's numpy array."""
+    return tuple(make(c[k]) for k in ("w", "w_t", "s", "r", "rp", "r_t",
+                                      "s_t", "rp_t"))
+
+
 def _row_scale(c, F):
     """Σ_e |w_e|·|x[s_e]| per receiver row (the bf16 error scale)."""
     out = np.zeros((c["n"], F))
@@ -58,6 +69,11 @@ def _assert_rel(got, ref, rel, scale):
     assert (np.abs(got - ref) <= rel * scale + 1e-6).all()
 
 
+def _skip_without_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run with `pytest -m cuda` on the GPU")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("F", [1, 8, 128, 130])
@@ -69,16 +85,14 @@ def test_cuda_kernel_matches_plain(F, dtype, n_pad, hub):
     row's Σ|w·x| (the plain version's atomics and the kernel's lanes sum in
     other orders; a row of 3000 f32 terms drifts ~2e-5).  With 3000 padding
     edges row 0, and with a hub a middle row, is split across warps."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: run with `pytest -m cuda` on the GPU")
+    _skip_without_card()
     c = _csr_case(F, F, e=900 + hub, n_pad=n_pad, hub=hub)
     tdt = getattr(torch, dtype)
     x = torch.tensor(c["x"], dtype=tdt, device="cuda")
-    w = torch.tensor(c["w"], device="cuda")
-    s = torch.tensor(c["s"], device="cuda")
-    rp = torch.tensor(c["rp"], device="cuda")
+    layout = _layout(c, lambda a: torch.tensor(a, device="cuda"))
+    w, s, rp = layout[0], layout[2], layout[4]
     before = K.spmm_csr.launches
-    got = K.spmm_csr(x, w, s, rp, c["n"])
+    got = K.spmm_csr(x, *layout, c["n"])
     torch.cuda.synchronize()
     assert K.spmm_csr.launches == before + 1
     ref = K.spmm_csr_plain(x, w, s, rp, c["n"])
@@ -126,8 +140,7 @@ def _bmm_check(got, ref, scale, slack=0.0):
 def test_cuda_bmm_matches_plain(trans_a, trans_b, size, dtype):
     """K3's kernel against ``bmm_plain`` on the card (TF32 off), one
     counted launch per call."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: run with `pytest -m cuda` on the GPU")
+    _skip_without_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     a, b = _bmm_operands(*size, trans_a, trans_b, dtype)
     before = BMM.bmm.launches
@@ -148,8 +161,7 @@ def test_cuda_bmm_backward_matches_plain_autograd(trans_a, trans_b, dtype):
     """The autograd backward on the card (two kernel launches) against the
     same ``autograd.Function`` on CPU copies, where every product is
     ``bmm_plain``."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: run with `pytest -m cuda` on the GPU")
+    _skip_without_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     size = (5, 70, 130, 33)
     a, b = _bmm_operands(*size, trans_a, trans_b, dtype, seed=1)
@@ -180,3 +192,189 @@ def test_cuda_bmm_backward_matches_plain_autograd(trans_a, trans_b, dtype):
     slack = 2.0 ** -7 if dtype == "bfloat16" else 0.0
     _bmm_check(grads["cuda"][0], grads["cpu"][0], sa, slack)
     _bmm_check(grads["cuda"][1], grads["cpu"][1], sb, slack)
+
+
+def _scaled(got, ref, scale, rel):
+    """|kernel − plain| ≤ rel · Σ|terms| (other f32 sum orders, and for
+    bf16 outputs one rounding)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert ((got - ref).abs() <= rel * scale.float().cpu() + 1e-6).all()
+
+
+def _rel_of(dtype):
+    return 1e-4 if dtype == "float32" else 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 33, 130])
+@pytest.mark.parametrize("n_pad,hub", [(N_PAD_EDGES, 0), (3000, 700)])
+def test_cuda_spmm_csr_backward_matches_cpu(F, dtype, n_pad, hub):
+    """K1's autograd backward on the card (the forward and ``d_h`` each
+    one counted launch, ``d_w`` a plain gather-and-dot) against the same
+    ``autograd.Function`` on CPU copies; with 3000 padding edges row 0 of
+    both layouts is long, with a hub a middle row."""
+    _skip_without_card()
+    c = _csr_case(40 + F, F, e=900 + hub, n_pad=n_pad, hub=hub)
+    tdt = getattr(torch, dtype)
+    g = np.random.default_rng(F).normal(size=(c["n"], F)).astype(np.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        h = torch.tensor(c["x"], device=dev).to(tdt).requires_grad_()
+        layout = list(_layout(c, lambda a: torch.tensor(a, device=dev)))
+        layout[0].requires_grad_()
+        before = K.spmm_csr.launches
+        K.spmm_csr(h, *layout, c["n"]).backward(
+            torch.tensor(g, device=dev).to(tdt))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        assert K.spmm_csr.launches - before == (2 if dev == "cuda" else 0)
+        grads[dev] = (h.grad, layout[0].grad)
+    # d_h's Σ|terms|: |w_t| · |g| over the transpose layout
+    scale = np.zeros((c["n"], F))
+    gb = np.abs(torch.tensor(g).to(tdt).float().numpy())
+    np.add.at(scale, c["s_t"], np.abs(c["w_t"])[:, None] * gb[c["r_t"]])
+    _scaled(grads["cuda"][0], grads["cpu"][0], torch.tensor(scale),
+            _rel_of(dtype))
+    torch.testing.assert_close(grads["cuda"][1].cpu(), grads["cpu"][1],
+                               rtol=1e-5, atol=1e-5)
+
+
+def _sorted_case(seed, F, num_rows=256, e=3000, hub_rows=(77,), hub=400,
+                 empty=(5,), tail=50):
+    """Receiver-sorted messages over ``num_rows`` rows: ``hub`` edges in
+    each hub row (longer than a warp's 256), empty rows, and ``tail``
+    padding edges past ``row_ptr[num_rows]``."""
+    rng = np.random.default_rng(seed)
+    r = np.concatenate([rng.integers(0, num_rows, e)]
+                       + [np.full(hub, h) for h in hub_rows])
+    r = np.sort(r[~np.isin(r, empty)]).astype(np.int32)
+    rp = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=num_rows))]
+                        ).astype(np.int32)
+    msgs = rng.normal(size=(r.shape[0] + tail, F)).astype(np.float32)
+    rids = np.concatenate([r, np.full(tail, num_rows, np.int32)])
+    return msgs, rids, rp, num_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 33, 130])
+def test_cuda_sorted_segment_sum_matches_plain(F, dtype):
+    """K4 against its plain version (empty rows, a 400-edge row, padding
+    past ``row_ptr[num_rows]``), and its gather gradient."""
+    _skip_without_card()
+    msgs, rids, rp, n = _sorted_case(F, F)
+    tdt = getattr(torch, dtype)
+    m = torch.tensor(msgs, device="cuda").to(tdt).requires_grad_()
+    rid_t = torch.tensor(rids, device="cuda")
+    rp_t = torch.tensor(rp, device="cuda")
+    before = K.sorted_segment_sum.launches
+    got = K.sorted_segment_sum(m, rid_t, rp_t, n)
+    torch.cuda.synchronize()
+    assert K.sorted_segment_sum.launches == before + 1
+    ref = K.sorted_segment_sum_plain(m.detach(), rid_t, rp_t, n)
+    scale = K.sorted_segment_sum_plain(m.detach().float().abs(), rid_t,
+                                       rp_t, n)
+    _scaled(got, ref, scale, _rel_of(dtype))
+    assert not got[5].any()
+    g = torch.randn(n, F, device="cuda").to(tdt)
+    got.backward(g)
+    assert torch.equal(m.grad, g[rid_t.clamp(0, n - 1).long()])
+
+
+def _band_case(seed, F, n=1000, e=6000, bw=60, break_every=97,
+               num_rows=1024):
+    rng = np.random.default_rng(seed)
+    r = np.sort(rng.integers(0, n, e))
+    r = np.sort(np.concatenate([r[r != 300], np.full(400, 500)])
+                ).astype(np.int32)  # row 300 empty, row 500 long
+    s = np.clip(r + rng.integers(-bw, bw + 1, r.shape[0]), 0, n - 1
+                ).astype(np.int32)
+    s[::break_every] = rng.integers(0, n, s[::break_every].shape[0])
+    w = rng.normal(size=r.shape[0]).astype(np.float32)
+    rp = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=num_rows))]
+                        ).astype(np.int32)
+    x = rng.normal(size=(n, F)).astype(np.float32)
+    return x, s, r, w, rp, num_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 33, 130])
+@pytest.mark.parametrize("window", [128, 256])
+def test_cuda_banded_sorted_spmm_matches_plain(window, F, dtype):
+    """K5's windowed mode against its plain version, on a layout whose
+    every 97th sender leaves its block's window (those add 0 in both), an
+    empty row and a 400-edge row; then ``spmm_banded``'s gradients on the
+    card against the CPU."""
+    _skip_without_card()
+    x, s, r, w, rp, n = _band_case(F + window, F)
+    tdt = getattr(torch, dtype)
+    xt = torch.tensor(x, device="cuda").to(tdt)
+    st, rt, wt = (torch.tensor(a, device="cuda") for a in (s, r, w))
+    rpt = torch.tensor(rp, device="cuda")
+    before = K.banded_sorted_spmm.launches
+    got = K.banded_sorted_spmm(xt, st, rpt, wt, n, window=window)
+    torch.cuda.synchronize()
+    assert K.banded_sorted_spmm.launches == before + 1
+    ref = K.banded_sorted_spmm_plain(xt, st, rpt, wt, n, window=window)
+    scale = K.banded_sorted_spmm_plain(xt.float().abs(), st, rpt, wt.abs(),
+                                       n, window=window)
+    _scaled(got, ref, scale, _rel_of(dtype))
+    full = K.spmm_csr_plain(xt.float(), wt, st, rpt, n)
+    assert (full - ref.float()).abs().max() > 1e-2  # the windows cut edges
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xd = xt.detach().to(dev).requires_grad_()
+        wd = wt.detach().to(dev).requires_grad_()
+        out = K.spmm_banded(xd, st.to(dev), rt.to(dev), wd, 1000,
+                            window=window)
+        out.float().square().sum().backward()
+        grads[dev] = (out.detach(), xd.grad, wd.grad)
+    for a, b in zip(*grads.values()):
+        torch.testing.assert_close(a.cpu().float(), b.float(),
+                                   rtol=2e-2, atol=2e-2 * float(
+                                       b.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 33, 128, 130])
+def test_cuda_banded_sddmm_matches_plain(F, dtype):
+    """K6 against its plain version: padding ids (``Na``/``Nb``), a
+    negative id, ids above their chunk's window on either axis, E not a
+    multiple of the 512-edge chunk; then ``sddmm_banded``'s gradients."""
+    _skip_without_card()
+    rng = np.random.default_rng(F)
+    na, nb, e = 1500, 1400, 5000
+    s = np.clip(np.sort(rng.integers(0, na, e)) + rng.integers(-40, 40, e),
+                0, na - 1).astype(np.int32)
+    r = np.clip(np.sort(rng.integers(0, nb, e)) + rng.integers(-40, 40, e),
+                0, nb - 1).astype(np.int32)
+    s[5], r[7], s[900], r[2100], s[2500] = na, nb, na - 1, nb - 1, -3
+    tdt = getattr(torch, dtype)
+    a = torch.tensor(rng.normal(size=(na, F)).astype(np.float32),
+                     device="cuda").to(tdt)
+    b = torch.tensor(rng.normal(size=(nb, F)).astype(np.float32),
+                     device="cuda").to(tdt)
+    st, rt = torch.tensor(s, device="cuda"), torch.tensor(r, device="cuda")
+    before = SD.banded_sddmm.launches
+    got = SD.banded_sddmm(a, b, st, rt, window=256)
+    torch.cuda.synchronize()
+    assert SD.banded_sddmm.launches == before + 1
+    ref = SD.banded_sddmm_plain(a, b, st, rt, window=256)
+    scale = SD.banded_sddmm_plain(a.abs(), b.abs(), st, rt, window=256)
+    _scaled(got, ref, scale, 1e-5)
+    assert (got[[5, 7, 900, 2100, 2500]] == 0).all()
+    assert torch.equal(got == 0, ref == 0)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        ad = a.detach().to(dev).requires_grad_()
+        bd = b.detach().to(dev).requires_grad_()
+        SD.sddmm_banded(ad, bd, st.to(dev), rt.to(dev),
+                        window=256).square().sum().backward()
+        grads[dev] = (ad.grad, bd.grad)
+    for x, y in zip(*grads.values()):
+        torch.testing.assert_close(x.cpu().float(), y.float(), rtol=2e-2,
+                                   atol=2e-2 * float(y.float().abs().max()))

@@ -16,7 +16,8 @@ import torch
 from tgp_tpu.ops.pallas.segment_spmm import segment_sum_sorted as jax_sss
 from tgp_tpu.ops.pallas.segment_spmm import spmm_csr as jax_spmm_csr
 from tgp_tpu_torch.ops.kernels import segment_spmm as K
-from tests.test_torch_cuda_kernels import _assert_rel, _csr_case, _row_scale
+from tests.test_torch_cuda_kernels import (_assert_rel, _csr_case, _layout,
+                                           _row_scale)
 
 torch.set_num_threads(1)
 
@@ -39,8 +40,8 @@ def test_spmm_csr_plain_matches_pallas(F, dtype):
         jnp.asarray(c["r_t"]), jnp.asarray(c["s_t"]), jnp.asarray(c["rp_t"]),
         c["n"], True)
     before = K.spmm_csr.launches
-    got = K.spmm_csr(torch.tensor(c["x"], dtype=tdt), torch.tensor(c["w"]),
-                     torch.tensor(c["s"]), torch.tensor(c["rp"]), c["n"])
+    got = K.spmm_csr(torch.tensor(c["x"], dtype=tdt),
+                     *_layout(c, torch.tensor), c["n"])
     assert got.dtype == tdt and got.shape == (c["n"], F)
     assert K.spmm_csr.launches == before  # CPU tensors: plain version
     _assert_close(got.float(), jnp.asarray(ref, jnp.float32), dtype,
@@ -88,6 +89,7 @@ def test_segment_sum_sorted_rejects_short_row_ptr():
 def test_wrapper_refuses_devices_without_a_path():
     x = torch.zeros(4, 2, device="meta")
     with pytest.raises(ValueError, match="no segment_spmm path"):
-        K.spmm_csr(x, torch.zeros(3, device="meta"),
-                   torch.zeros(3, dtype=torch.int32, device="meta"),
-                   torch.zeros(257, dtype=torch.int32, device="meta"), 4)
+        K.spmm_csr(x, torch.zeros(3, device="meta"), None,
+                   torch.zeros(3, dtype=torch.int32, device="meta"), None,
+                   torch.zeros(257, dtype=torch.int32, device="meta"),
+                   None, None, None, 4)

@@ -142,12 +142,14 @@ import pkgutil
 import sys
 import numpy as np
 import tgp_tpu_torch
+from tgp_tpu_torch.ops.ordering import plan_locality_spmm
 mods = [m.name for m in pkgutil.walk_packages(tgp_tpu_torch.__path__,
                                                'tgp_tpu_torch.')]
 for name in mods:
     importlib.import_module(name)
 assert {'tgp_tpu_torch.ops.kernels.bmm', 'tgp_tpu_torch.models.prepare',
-        'tgp_tpu_torch.models.fast_dense'} <= set(mods), mods
+        'tgp_tpu_torch.models.fast_dense', 'tgp_tpu_torch.ops.ordering',
+        'tgp_tpu_torch.ops.kernels.sddmm'} <= set(mods), mods
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tgp_tpu'))
 assert not bad, bad
@@ -158,7 +160,8 @@ for call in (lambda: tgp_tpu_torch.from_graphs(g),
              lambda: tgp_tpu_torch.Predictor(lambda b: b.x),
              lambda: tgp_tpu_torch.get_pooler('topk', in_channels=4),
              lambda: tgp_tpu_torch.PoolingClassifier(None, 3, hidden=4),
-             lambda: tgp_tpu_torch.DenseTopkClassifier(3, hidden=4)):
+             lambda: tgp_tpu_torch.DenseTopkClassifier(3, hidden=4),
+             lambda: plan_locality_spmm(g[0][1], 3)):
     try:
         call()
     except RuntimeError as e:

@@ -10,8 +10,9 @@ the JAX layer:
 * **static CSR** (receiver-sorted batch with the collator's ``row_ptr``,
   kernel regime): both ``D^{-1/2}`` factors fold into node space and the
   SpMM runs in the CUDA kernel (:func:`~tgp_tpu_torch.ops.kernels.
-  segment_spmm.spmm_csr`); on a masked pooled graph the degree is one more
-  kernel pass at width 1.
+  segment_spmm.spmm_csr`), whose gradient is the same kernel over the
+  collator's sender-sorted transpose layout; on a masked pooled graph the
+  degree is one more kernel pass at width 1.
 * **sorted, no CSR**: normalized messages summed by the sorted
   segment-sum kernel.
 * **generic**: :func:`gcn_norm` + gather/scatter SpMM.
@@ -196,25 +197,31 @@ class GCNConv(nn.Module):
 
     def _csr(self, batch: GraphBatch, h: Tensor) -> Tensor:
         """Static-CSR branch: one kernel SpMM (plus one width-1 kernel pass
-        for the degree when the collator's ``in_degree`` is gone)."""
+        for the degree when the collator's ``in_degree`` is gone); the
+        SpMM's gradient runs the kernel over the collator's transpose
+        layout."""
         from tgp_tpu_torch.ops.kernels.segment_spmm import spmm_csr
 
         N = batch.num_nodes
         nm = batch.node_mask
         w = torch.where(batch.edge_mask, batch.edge_weight, 0.0).to(
             torch.float32)
+        # zero on padding edges, and on the edges masked pooling removed
+        w_t = (None if batch.edge_weight_t is None
+               else batch.edge_weight_t.to(torch.float32))
+        layout = (batch.senders, batch.receivers, batch.row_ptr,
+                  batch.receivers_t, batch.senders_t, batch.row_ptr_t, N)
         if batch.in_degree is not None:
             deg = batch.in_degree.to(torch.float32)
         else:
             # masked/pooled graph: deg[r] = Σ |w_e| · m[send_e]
             deg = spmm_csr(nm.to(torch.float32)[:, None], w.abs(),
-                           batch.senders, batch.row_ptr, N)[:, 0]
+                           None if w_t is None else w_t.abs(), *layout)[:, 0]
         if self.add_self_loops:
             unit = _unit_loops(batch).to(torch.float32)
             deg = deg + unit
         dinv = _dinv(deg) * nm.to(torch.float32)
-        out = spmm_csr(h * dinv[:, None].to(h.dtype), w, batch.senders,
-                       batch.row_ptr, N)
+        out = spmm_csr(h * dinv[:, None].to(h.dtype), w, w_t, *layout)
         out = out * dinv[:, None].to(out.dtype)
         if self.add_self_loops:
             out = out + h * (dinv * dinv * unit)[:, None].to(h.dtype)

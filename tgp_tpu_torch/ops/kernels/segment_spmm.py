@@ -1,33 +1,47 @@
-"""Sorted-CSR SpMM and segment-sum: one hand-written CUDA kernel
-(``tgp_tpu_torch/csrc/segment_spmm.cu``) behind two wrappers, each with
-its plain PyTorch version beside it.
+"""Sorted-CSR SpMM and segment-sums: one hand-written CUDA kernel
+(``tgp_tpu_torch/csrc/segment_spmm.cu``) behind four wrappers, each with
+its plain PyTorch version beside it.  Each replaces kernels of
+``tgp_tpu/ops/pallas/segment_spmm.py``:
 
-* :func:`spmm_csr` replaces ``tgp_tpu/ops/pallas/segment_spmm.py::
-  _grouped_kernel_w`` (run by ``spmm_csr`` → ``_gather_kernel_pass``):
-  ``out[r] = Σ_{e∈[row_ptr[r], row_ptr[r+1])} w_e · x[idx_e]``.
-* :func:`segment_sum_sorted` replaces ``_grouped_kernel`` (run by
-  ``segment_sum_sorted``): the unweighted sum of receiver-sorted messages,
-  the same kernel with no gather index and no weight.
+* :func:`spmm_csr` — ``_grouped_kernel_w`` (K1, run by ``spmm_csr`` →
+  ``_gather_kernel_pass``): ``out[r] = Σ_{e∈[row_ptr[r], row_ptr[r+1])}
+  w_e · x[idx_e]``.  Its gradient mirrors the JAX custom VJP: ``d_h =
+  Aᵀg`` is the same kernel over the sender-sorted transpose layout, and
+  ``d_w = ⟨h[s], g[r]⟩`` a plain gather-and-dot, computed only when asked.
+* :func:`segment_sum_sorted` — ``_grouped_kernel`` (K2): the unweighted sum
+  of receiver-sorted messages, the same kernel with no gather index and no
+  weight; its gradient is the gather ``g[clip(receivers)]``.
+* :func:`sorted_segment_sum` — ``_kernel`` / ``sorted_segment_sum_pallas``
+  (K4), K2's function read from ``row_ptr`` alone (edges past
+  ``row_ptr[num_rows]`` are never read), the same gather gradient; behind
+  :func:`spmm_sorted` (gather, weight, K4).  The TPU kernel's tiling
+  arguments (``block_rows``, ``block_edges``, ``precision``,
+  ``interpret``) and its padding of F to 128 lanes have no counterpart:
+  the kernel takes any row count and width.
+* :func:`banded_sorted_spmm` — ``_banded_kernel`` /
+  ``banded_sorted_spmm_pallas`` (K5), the kernel's windowed mode: each
+  ``block_rows``-row receiver block gathers only senders inside its
+  window of x, weights rounded to x's dtype; behind :func:`spmm_banded`,
+  whose gradient is the JAX package's plain scatter.
 
-Both accumulate in f32 and return ``x.dtype`` (f32 or bf16), take any
-width F (F = 1 included) and never write rows past ``num_rows``.
+All accumulate in f32 and return ``x.dtype`` (f32 or bf16), take any width
+F (F = 1 included) and never write rows past ``num_rows``.
 
 Bound on an H100: bytes.  Two flops per gathered element sit far below
 the card's flop/byte balance, so the least time is idx + w + row_ptr +
 one read of x + one write of out over the memory rate; the E·F gathered
-elements come from L2 while x fits in its 50 MB.  The TPU kernel wrote the
-gathered ``[E, F]`` rows to device memory and summed them with one-hot
-matmuls; the CUDA kernel gathers each row straight into registers (a
-warp per row, 16-byte vector loads), so those rows never exist.  Rows
-longer than ``EDGES_PER_ITEM`` edges — the padding edges make row 0 one —
-are shared with one more warp per further chunk of that many edges.
+elements come from L2 while x fits in its 50 MB.  The TPU kernels wrote
+the gathered ``[E, F]`` rows to device memory (or gathered from a VMEM
+window with one-hot matmuls) and summed them with one-hot matmuls; the
+CUDA kernel gathers each row straight into registers (a warp per row,
+16-byte vector loads), so those rows never exist.  Rows longer than
+``EDGES_PER_ITEM`` edges — the padding edges make row 0 one — are shared
+with one more warp per further chunk of that many edges.
 
 Dispatch is by where the tensors lie: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises — there is no
-fallback.  Each wrapper counts its launches in ``<wrapper>.launches``.
-Gradients come with the sparse training slice (K1's backward over the
-``*_t`` layout, the ``d_w`` SDDMM): until then the CUDA path raises on
-inputs that require grad.
+fallback.  Each wrapper counts its launches, the backward's included, in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -36,22 +50,27 @@ import ctypes
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 __all__ = ["spmm_csr", "spmm_csr_plain", "segment_sum_sorted",
-           "segment_sum_sorted_plain", "build_row_ptr"]
+           "segment_sum_sorted_plain", "sorted_segment_sum",
+           "sorted_segment_sum_plain", "spmm_sorted", "banded_sorted_spmm",
+           "banded_sorted_spmm_plain", "spmm_banded", "check_band_contract",
+           "sort_edges_csr", "build_row_ptr"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: most edges one warp sums: longer rows are split across warps
 EDGES_PER_ITEM = 256
 
 
-def build_row_ptr(receivers_sorted: torch.Tensor, num_rows: int
-                  ) -> torch.Tensor:
+def build_row_ptr(receivers_sorted: torch.Tensor, num_rows: int,
+                  multiple: int = 256) -> torch.Tensor:
     """``[rows_pad+1]`` int32 CSR offsets of ascending receivers, rows
-    padded to a multiple of 256; receivers outside ``[0, rows_pad)`` are
-    not counted (as ``tgp_tpu``'s ``segment_sum`` drops them)."""
-    rows_pad = ((num_rows + 255) // 256) * 256
+    padded to a multiple of ``multiple``; receivers outside ``[0,
+    rows_pad)`` are not counted (as ``tgp_tpu``'s ``segment_sum`` drops
+    them)."""
+    rows_pad = ((num_rows + multiple - 1) // multiple) * multiple
     r = receivers_sorted.to(torch.int64)
     ok = (r >= 0) & (r < rows_pad)
     counts = torch.zeros(rows_pad, dtype=torch.int64, device=r.device)
@@ -61,31 +80,68 @@ def build_row_ptr(receivers_sorted: torch.Tensor, num_rows: int
     return row_ptr
 
 
+def _band_window_base(senders_sorted: torch.Tensor, row_ptr: torch.Tensor,
+                      num_rows: int, n_pad: int, window: int,
+                      block_rows: int) -> torch.Tensor:
+    """``[num_rows // block_rows]`` int32 window starts, as
+    ``banded_sorted_spmm_pallas`` computes them: a block's smallest sender
+    among the edges ``row_ptr`` gives it, rounded down to 8 and clipped to
+    ``[0, n_pad − window]``; an empty block takes the top of that range."""
+    E = senders_sorted.shape[0]
+    nblk = num_rows // block_rows
+    dev = senders_sorted.device
+    starts = row_ptr[: num_rows + 1: block_rows].to(torch.int64)
+    is_start = torch.zeros(E + 1, dtype=torch.int64, device=dev)
+    is_start.index_add_(0, starts.clamp(0, E), torch.ones_like(starts))
+    blk = (torch.cumsum(is_start[:E], 0) - 1).clamp(0, nblk - 1)
+    key = torch.where(torch.arange(E, device=dev) < row_ptr[num_rows],
+                      senders_sorted.to(torch.int64), n_pad)
+    min_send = torch.full((nblk,), n_pad, dtype=torch.int64, device=dev)
+    min_send.scatter_reduce_(0, blk, key, "amin")
+    base = torch.div(min_send, 8, rounding_mode="floor") * 8
+    return base.clamp(0, max(n_pad - window, 0)).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and the reference the kernel is held to)
 # ---------------------------------------------------------------------------
 
 
+def _csr_sum_plain(x, w, idx, row_ptr, num_rows, win=None):
+    """``out[r] = Σ_{e∈[row_ptr[r], row_ptr[r+1])} w_e · x[idx_e]`` for
+    ``r < num_rows`` by ``index_select`` + ``index_add_``; ``idx=None``
+    reads row ``e`` for edge ``e``, ``w=None`` weighs every edge 1.  ``win
+    = (window, block_rows)``: the windowed mode (see
+    :func:`banded_sorted_spmm`)."""
+    rp = row_ptr[: num_rows + 1].to(torch.int64)
+    rows = torch.repeat_interleave(
+        torch.arange(num_rows, device=x.device), rp[1:] - rp[:-1])
+    edges = int(rp[0]) + torch.arange(rows.shape[0], device=x.device)
+    src = edges if idx is None else idx[edges].to(torch.int64)
+    wt = (torch.ones(rows.shape[0], device=x.device) if w is None
+          else w[edges].to(torch.float32))
+    if win is not None:
+        window, block_rows = win
+        base = _band_window_base(idx, row_ptr, num_rows,
+                                 max(x.shape[0], window), window, block_rows)
+        lo = base.to(torch.int64)[rows // block_rows]
+        keep = (src >= lo) & (src < torch.clamp(lo + window,
+                                                max=x.shape[0]))
+        wt = torch.where(keep, wt.to(x.dtype).to(torch.float32), 0.0)
+        src = torch.where(keep, src, 0)
+    msgs = x.index_select(0, src).to(torch.float32) * wt[:, None]
+    out = torch.zeros(num_rows, x.shape[1], dtype=torch.float32,
+                      device=x.device)
+    out.index_add_(0, rows, msgs)
+    return out.to(x.dtype)
+
+
 def spmm_csr_plain(x: torch.Tensor, w: Optional[torch.Tensor],
                    idx: Optional[torch.Tensor], row_ptr: torch.Tensor,
                    num_rows: int) -> torch.Tensor:
-    """Plain PyTorch :func:`spmm_csr`: ``index_select`` + weight +
-    ``index_add_`` over receivers expanded from ``row_ptr``.  ``idx=None``
-    reads row ``e`` for edge ``e``, ``w=None`` weighs every edge 1."""
-    rows_pad = row_ptr.shape[0] - 1
-    counts = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
-    rid = torch.repeat_interleave(
-        torch.arange(rows_pad, device=x.device), counts)
-    n_e = rid.shape[0]
-    src = (torch.arange(n_e, device=x.device) if idx is None
-           else idx[:n_e].to(torch.int64))
-    msgs = x.index_select(0, src).to(torch.float32)
-    if w is not None:
-        msgs = msgs * w[:n_e, None].to(torch.float32)
-    out = torch.zeros(rows_pad, x.shape[1], dtype=torch.float32,
-                      device=x.device)
-    out.index_add_(0, rid, msgs)
-    return out[:num_rows].to(x.dtype)
+    """Plain PyTorch forward of :func:`spmm_csr` (``idx=None`` reads row
+    ``e`` for edge ``e``, ``w=None`` weighs every edge 1)."""
+    return _csr_sum_plain(x, w, idx, row_ptr, num_rows)
 
 
 def segment_sum_sorted_plain(msgs: torch.Tensor,
@@ -95,7 +151,25 @@ def segment_sum_sorted_plain(msgs: torch.Tensor,
     """Plain PyTorch :func:`segment_sum_sorted`."""
     if row_ptr is None:
         row_ptr = build_row_ptr(receivers_sorted, num_rows)
-    return spmm_csr_plain(msgs, None, None, row_ptr, num_rows)
+    return _csr_sum_plain(msgs, None, None, row_ptr, num_rows)
+
+
+def sorted_segment_sum_plain(msgs: torch.Tensor,
+                             rids: Optional[torch.Tensor],
+                             row_ptr: torch.Tensor, num_rows: int
+                             ) -> torch.Tensor:
+    """Plain PyTorch :func:`sorted_segment_sum` (``rids`` unused)."""
+    return _csr_sum_plain(msgs, None, None, row_ptr, num_rows)
+
+
+def banded_sorted_spmm_plain(x: torch.Tensor, senders_sorted: torch.Tensor,
+                             row_ptr: torch.Tensor, w_sorted: torch.Tensor,
+                             num_rows: int, *, window: int = 512,
+                             block_rows: int = 128) -> torch.Tensor:
+    """Plain PyTorch :func:`banded_sorted_spmm`, windows included."""
+    _check_band_args(x, row_ptr, num_rows, window, block_rows)
+    return _csr_sum_plain(x, w_sorted, senders_sorted, row_ptr, num_rows,
+                          (window, block_rows))
 
 
 # ---------------------------------------------------------------------------
@@ -108,8 +182,9 @@ def _lib():
     from tgp_tpu_torch.ops.kernels._build import load
 
     lib = load("segment_spmm")
-    lib.tgp_csr_spmm.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tgp_csr_spmm.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.tgp_csr_spmm.restype = ctypes.c_int
     lib.tgp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tgp_cuda_error_string.restype = ctypes.c_char_p
@@ -127,8 +202,10 @@ def _check_vector(name, t, dtype, device, min_len=None):
                          f">= {min_len}")
 
 
-def _launch_csr(x, idx, w, row_ptr, num_rows):
-    """Validate, allocate and launch; the caller counts the launch."""
+def _launch_csr(x, idx, w, row_ptr, num_rows, win=None):
+    """Validate, allocate and launch; True if the kernel was launched
+    (the caller counts it).  ``win``: see :func:`_csr_sum_plain`; the
+    kernel computes the window starts itself."""
     dev = x.device
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"kernel takes float32 or bfloat16 x, got {x.dtype}")
@@ -137,10 +214,6 @@ def _launch_csr(x, idx, w, row_ptr, num_rows):
                          f"shape {tuple(x.shape)}")
     if x.shape[0] >= 2 ** 31 or x.shape[1] >= 2 ** 31:
         raise ValueError(f"x shape {tuple(x.shape)} exceeds int32 indexing")
-    if any(t is not None and t.requires_grad for t in (x, w)):
-        raise NotImplementedError(
-            "the CUDA SpMM has no backward yet (sparse training slice): "
-            "call it under torch.no_grad() / torch.inference_mode()")
     _check_vector("row_ptr", row_ptr, torch.int32, dev, num_rows + 1)
     if idx is not None:
         _check_vector("idx", idx, torch.int32, dev)
@@ -148,6 +221,10 @@ def _launch_csr(x, idx, w, row_ptr, num_rows):
     n_edges = x.shape[0] if idx is None else idx.shape[0]
     if w is not None:
         _check_vector("w", w, torch.float32, dev, n_edges)
+    window, block_rows = win if win is not None else (0, 0)
+    win_base = (None if win is None else
+                torch.empty(num_rows // block_rows, dtype=torch.int32,
+                            device=dev))
     out = torch.empty(num_rows, F, dtype=x.dtype, device=dev)
     if num_rows == 0 or F == 0:
         return out, False
@@ -166,36 +243,117 @@ def _launch_csr(x, idx, w, row_ptr, num_rows):
         err = lib.tgp_csr_spmm(
             x.data_ptr(), None if idx is None else idx.data_ptr(),
             None if w is None else w.data_ptr(), row_ptr.data_ptr(),
-            acc.data_ptr(), counters.data_ptr(), out.data_ptr(),
-            num_rows, F, S, n_chunks, _DTYPE_CODE[x.dtype], stream)
+            None if win_base is None else win_base.data_ptr(), window,
+            block_rows, x.shape[0], n_edges, acc.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), num_rows, F, S, n_chunks,
+            _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError("segment_spmm kernel launch failed: "
                            + lib.tgp_cuda_error_string(err).decode())
     return out, True
 
 
-def _route(x: torch.Tensor) -> str:
+def _csr_sum(x, w, idx, row_ptr, num_rows, counter, win=None):
+    """The kernel on a CUDA tensor (one launch counted on ``counter``), the
+    plain version on a CPU tensor (``win``: see :func:`_csr_sum_plain`)."""
     if x.device.type == "cpu":
-        return "plain"
-    if x.device.type == "cuda":
-        return "kernel"
-    raise ValueError(f"no segment_spmm path for device {x.device}")
-
-
-def spmm_csr(h: torch.Tensor, w: torch.Tensor, senders: torch.Tensor,
-             row_ptr: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """SpMM ``out[r] = Σ_{e: recv=r} w_e · h[send_e]`` over a
-    receiver-sorted static-CSR edge list (``row_ptr`` from the collator,
-    ``[rows_pad+1]`` int32).  Forward of ``tgp_tpu``'s ``spmm_csr``;
-    ``[num_rows, F]`` in ``h.dtype``."""
-    if _route(h) == "plain":
-        return spmm_csr_plain(h, w, senders, row_ptr, num_rows)
-    out, launched = _launch_csr(h, senders, w, row_ptr, num_rows)
-    spmm_csr.launches += launched
+        return _csr_sum_plain(x, w, idx, row_ptr, num_rows, win)
+    if x.device.type != "cuda":
+        raise ValueError(f"no segment_spmm path for device {x.device}")
+    out, launched = _launch_csr(x, idx, w, row_ptr, num_rows, win)
+    counter.launches += launched
     return out
 
 
+# ---------------------------------------------------------------------------
+# K1: spmm_csr
+# ---------------------------------------------------------------------------
+
+
+class _SpmmCsr(torch.autograd.Function):
+    """``tgp_tpu``'s ``spmm_csr`` custom VJP (``_spmm_csr_fwd`` /
+    ``_spmm_csr_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, h, w, w_t, senders, receivers, row_ptr, receivers_t,
+                row_ptr_t, num_rows):
+        ctx.num_rows, ctx.h_shape = num_rows, h.shape
+        # h is read back only by w's gradient
+        ctx.save_for_backward(h if ctx.needs_input_grad[1] else None, w,
+                              w_t, senders, receivers, receivers_t,
+                              row_ptr_t)
+        return _csr_sum(h, w, senders, row_ptr, num_rows, spmm_csr)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, w_t, senders, receivers, receivers_t, row_ptr_t = \
+            ctx.saved_tensors
+        n = ctx.num_rows
+        g = g.contiguous()
+        d_h = d_w = None
+        if ctx.needs_input_grad[0]:
+            # d_h = Aᵀ g over the sender-sorted layout, w_t rounded to g's
+            # dtype first as the JAX backward does
+            d_h = _csr_sum(g, w_t.to(g.dtype).to(torch.float32),
+                           receivers_t.clamp(0, n - 1), row_ptr_t,
+                           ctx.h_shape[0], spmm_csr)
+        if ctx.needs_input_grad[1]:
+            # d_w = SDDMM ⟨h[s], g[r]⟩ in f32
+            d_w = (h[senders.long()].to(torch.float32)
+                   * g[receivers.clamp(0, n - 1).long()].to(torch.float32)
+                   ).sum(-1).to(w.dtype)
+        return d_h, d_w, None, None, None, None, None, None, None
+
+
+def spmm_csr(h: torch.Tensor, w: torch.Tensor, w_t: Optional[torch.Tensor],
+             senders: torch.Tensor, receivers: Optional[torch.Tensor],
+             row_ptr: torch.Tensor, receivers_t: Optional[torch.Tensor],
+             senders_t: Optional[torch.Tensor],
+             row_ptr_t: Optional[torch.Tensor], num_rows: int
+             ) -> torch.Tensor:
+    """SpMM ``out[r] = Σ_{e: recv=r} w_e · h[send_e]`` over a
+    receiver-sorted static-CSR edge list (``row_ptr`` from the collator,
+    ``[rows_pad+1]`` int32); ``[num_rows, F]`` in ``h.dtype``.  The
+    arguments are ``tgp_tpu``'s ``spmm_csr``'s: ``w_t`` must equal ``w``
+    in the sender-sorted order of ``senders_t``/``receivers_t``/
+    ``row_ptr_t`` (the collator's transpose layout), which the gradient
+    for ``h`` runs over; ``receivers`` serves ``w``'s gradient.  ``w_t``
+    gets no gradient, and ``senders_t`` is not read (as in JAX).  The
+    transpose layout may be None where no gradient is taken."""
+    del senders_t
+    if torch.is_grad_enabled() and (
+            (h.requires_grad and (w_t is None or receivers_t is None
+                                  or row_ptr_t is None))
+            or (w.requires_grad and receivers is None)):
+        raise ValueError("spmm_csr's gradient needs the transpose layout "
+                         "(w_t, receivers_t, row_ptr_t) for h and the "
+                         "receivers for w")
+    return _SpmmCsr.apply(h, w, w_t, senders, receivers, row_ptr,
+                          receivers_t, row_ptr_t, num_rows)
+
+
 spmm_csr.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4: segment sums of receiver-sorted messages
+# ---------------------------------------------------------------------------
+
+
+class _SortedSum(torch.autograd.Function):
+    """Sum of receiver-sorted messages by ``row_ptr``; the gradient is the
+    gather ``g[clip(receivers, 0, num_rows − 1)]`` (``_sss_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, msgs, receivers_sorted, row_ptr, num_rows, counter):
+        ctx.num_rows = num_rows
+        ctx.save_for_backward(receivers_sorted)
+        return _csr_sum(msgs, None, None, row_ptr, num_rows, counter)
+
+    @staticmethod
+    def backward(ctx, g):
+        (r,) = ctx.saved_tensors
+        return g[r.clamp(0, ctx.num_rows - 1).long()], None, None, None, None
 
 
 def segment_sum_sorted(msgs: torch.Tensor, receivers_sorted: torch.Tensor,
@@ -203,19 +361,174 @@ def segment_sum_sorted(msgs: torch.Tensor, receivers_sorted: torch.Tensor,
                        row_ptr: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Receiver-sorted ``msgs [E, F]`` → per-row sums ``[num_rows, F]`` in
-    ``msgs.dtype``.  ``row_ptr`` (``[rows_pad+1]``, rows_pad a multiple of
-    256 ≥ num_rows) skips building the offsets from ``receivers_sorted``."""
+    ``msgs.dtype``, differentiable in ``msgs``.  ``row_ptr``
+    (``[rows_pad+1]``, rows_pad a multiple of 256 ≥ num_rows) skips
+    building the offsets from ``receivers_sorted``."""
     if row_ptr is None:
         row_ptr = build_row_ptr(receivers_sorted, num_rows)
     elif (row_ptr.shape[0] - 1) % 256 or row_ptr.shape[0] - 1 < num_rows:
         raise ValueError(f"row_ptr of length {row_ptr.shape[0]} does not "
                          f"cover {num_rows} rows padded to 256")
-    if _route(msgs) == "plain":
-        return segment_sum_sorted_plain(msgs, receivers_sorted, num_rows,
-                                        row_ptr)
-    out, launched = _launch_csr(msgs, None, None, row_ptr, num_rows)
-    segment_sum_sorted.launches += launched
-    return out
+    return _SortedSum.apply(msgs, receivers_sorted, row_ptr, num_rows,
+                            segment_sum_sorted)
 
 
 segment_sum_sorted.launches = 0
+
+
+def sorted_segment_sum(msgs: torch.Tensor, rids: Optional[torch.Tensor],
+                       row_ptr: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """``out[r] = Σ_{e∈[row_ptr[r], row_ptr[r+1])} msgs[e]`` for receiver-
+    sorted ``msgs [E, F]`` → ``[num_rows, F]`` in ``msgs.dtype`` (K4's
+    contract: the kernel reads only ``row_ptr``, so padding edges must sort
+    past ``row_ptr[num_rows]``; ``rids`` is the receiver of each edge, read
+    only by the gradient, ``g[clip(rids)]``)."""
+    if msgs.dim() != 2:
+        raise ValueError(f"msgs must be [E, F], got shape "
+                         f"{tuple(msgs.shape)}")
+    if row_ptr.dim() != 1 or row_ptr.shape[0] < num_rows + 1:
+        raise ValueError(f"row_ptr of shape {tuple(row_ptr.shape)} needs "
+                         f"num_rows + 1 = {num_rows + 1} entries")
+    if rids is None:
+        if torch.is_grad_enabled() and msgs.requires_grad:
+            raise ValueError("sorted_segment_sum's gradient needs rids")
+        rids = torch.zeros(msgs.shape[0], dtype=torch.int32,
+                           device=msgs.device)
+    return _SortedSum.apply(msgs, rids, row_ptr, num_rows,
+                            sorted_segment_sum)
+
+
+sorted_segment_sum.launches = 0
+
+
+def spmm_sorted(senders_sorted: torch.Tensor, rids_sorted: torch.Tensor,
+                row_ptr: torch.Tensor, edge_weight_sorted: torch.Tensor,
+                x: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """SpMM over a receiver-sorted edge list: gather, weight, then
+    :func:`sorted_segment_sum` (``tgp_tpu``'s ``spmm_sorted``)."""
+    msgs = x[senders_sorted.long()] * edge_weight_sorted[:, None]
+    return sorted_segment_sum(msgs.contiguous(), rids_sorted, row_ptr,
+                              num_rows)
+
+
+# ---------------------------------------------------------------------------
+# K5: the banded (windowed) SpMM
+# ---------------------------------------------------------------------------
+
+
+def _check_band_args(x, row_ptr, num_rows, window, block_rows):
+    if x.dim() != 2:
+        raise ValueError(f"x must be [N, F], got shape {tuple(x.shape)}")
+    if block_rows <= 0 or num_rows % block_rows:
+        raise ValueError(f"num_rows {num_rows} must be a multiple of "
+                         f"block_rows {block_rows}")
+    if window <= 0 or window % 8:
+        raise ValueError(f"window {window} must be a positive multiple of 8")
+    if row_ptr.dim() != 1 or row_ptr.shape[0] < num_rows + 1:
+        raise ValueError(f"row_ptr of shape {tuple(row_ptr.shape)} needs "
+                         f"num_rows + 1 = {num_rows + 1} entries")
+
+
+def banded_sorted_spmm(x: torch.Tensor, senders_sorted: torch.Tensor,
+                       row_ptr: torch.Tensor, w_sorted: torch.Tensor,
+                       num_rows: int, *, window: int = 512,
+                       block_rows: int = 128) -> torch.Tensor:
+    """``out[r] = Σ_{e∈[row_ptr[r], row_ptr[r+1])} w_e · x[send_e]`` over
+    receiver-sorted edges, with ``banded_sorted_spmm_pallas``'s window
+    contract: receiver block ``b`` (rows ``[b·block_rows, (b+1)·
+    block_rows)``) gathers only senders in ``[base_b, base_b + window)``,
+    ``base_b`` its smallest sender rounded down to 8 and clipped to
+    ``[0, max(N, window) − window]``; other senders add 0 (check the layout
+    with :func:`check_band_contract`).  Weights are rounded to ``x.dtype``
+    before the product; the sum is f32, the output ``[num_rows, F]`` in
+    ``x.dtype``.  No gradient (see :func:`spmm_banded`)."""
+    _check_band_args(x, row_ptr, num_rows, window, block_rows)
+    return _csr_sum(x, w_sorted.to(torch.float32).contiguous(),
+                    senders_sorted.to(torch.int32).contiguous(), row_ptr,
+                    num_rows, banded_sorted_spmm, (window, block_rows))
+
+
+banded_sorted_spmm.launches = 0
+
+
+class _BandedSpmm(torch.autograd.Function):
+    """``_banded_spmm_vjp``: the banded kernel forward; the backward is the
+    JAX package's scatter (``_banded_bwd``), with no window."""
+
+    @staticmethod
+    def forward(ctx, x, senders_sorted, receivers_sorted, w_sorted, num_rows,
+                window):
+        ctx.num_rows = num_rows
+        ctx.save_for_backward(x, senders_sorted, receivers_sorted, w_sorted)
+        # receiver −1 (sort_edges_csr's padding) is not counted
+        row_ptr = build_row_ptr(receivers_sorted, num_rows, 128)
+        out = banded_sorted_spmm(x, senders_sorted, row_ptr, w_sorted,
+                                 row_ptr.shape[0] - 1, window=window)
+        return out[:num_rows]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s, r, w = ctx.saved_tensors
+        safe_s = s.clamp(0, x.shape[0] - 1).long()
+        g_r = g[r.clamp(0, ctx.num_rows - 1).long()].to(torch.float32)
+        d_x = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_x = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            d_x.index_add_(0, safe_s, g_r * w.to(torch.float32)[:, None])
+            d_x = d_x.to(x.dtype)
+        if ctx.needs_input_grad[3]:
+            d_w = (x[safe_s].to(torch.float32) * g_r).sum(-1).to(w.dtype)
+        return d_x, None, None, d_w, None, None
+
+
+def spmm_banded(x: torch.Tensor, senders_sorted: torch.Tensor,
+                receivers_sorted: torch.Tensor, w_sorted: torch.Tensor,
+                num_rows: int, window: int = 512) -> torch.Tensor:
+    """Differentiable banded SpMM ``[num_rows, F]`` (``tgp_tpu``'s
+    ``spmm_banded``): offsets built by counting ``receivers_sorted`` (ids
+    outside ``[0, rows_pad)``, such as ``sort_edges_csr``'s −1 padding,
+    are dropped), rows padded to 128, then :func:`banded_sorted_spmm`.
+    Gradients for ``x`` and ``w_sorted`` are plain scatters that ignore the
+    window, as in JAX."""
+    return _BandedSpmm.apply(x, senders_sorted, receivers_sorted, w_sorted,
+                             num_rows, window)
+
+
+def check_band_contract(senders, receivers, edge_mask, num_rows: int,
+                        block_rows: int = 128, window: int = 512) -> bool:
+    """Host-side check of the band contract: True iff every receiver
+    block's masked senders span fewer than ``window − 8`` rows.  Takes
+    numpy arrays or tensors."""
+    s, r, m = (np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+               for a in (senders, receivers, edge_mask))
+    s, r = s[m.astype(bool)], r[m.astype(bool)]
+    for rb in range(0, num_rows, block_rows):
+        sel = (r >= rb) & (r < rb + block_rows)
+        if sel.any() and s[sel].max() - s[sel].min() >= window - 8:
+            return False
+    return True
+
+
+def sort_edges_csr(senders: torch.Tensor, receivers: torch.Tensor,
+                   edge_weight: torch.Tensor, edge_mask: torch.Tensor,
+                   num_rows: int):
+    """Sort edges by receiver, masked edges last (receiver −1, weight 0),
+    and build the ``[num_rows+1]`` int32 offsets of the valid ones:
+    ``(senders, receivers, weights, row_ptr)``, as ``tgp_tpu``'s
+    ``sort_edges_csr``."""
+    key = torch.where(edge_mask, receivers.to(torch.int64), num_rows)
+    order = torch.argsort(key, stable=True)
+    m = edge_mask[order]
+    s_s = senders[order]
+    r_s = torch.where(m, receivers[order], -1)
+    w_s = torch.where(m, edge_weight[order], 0.0)
+    # receivers outside [0, num_rows) are not counted (segment_sum drops
+    # them)
+    ok = edge_mask & (receivers >= 0) & (receivers < num_rows)
+    counts = torch.zeros(num_rows, dtype=torch.int64, device=senders.device)
+    counts.index_add_(0, torch.where(ok, receivers, 0).long(),
+                      ok.to(torch.int64))
+    row_ptr = torch.zeros(num_rows + 1, dtype=torch.int32,
+                          device=senders.device)
+    row_ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    return s_s, r_s, w_s, row_ptr

@@ -172,8 +172,10 @@ def spmm_batch(batch, x=None, *, abs_weights: bool = False):
     if x is None:
         x = batch.x
     w = torch.where(batch.edge_mask, batch.edge_weight, 0.0)
+    w_t = batch.edge_weight_t
     if abs_weights:
         w = w.abs()
+        w_t = None if w_t is None else w_t.abs()
     nm = batch.node_mask
     if batch.row_ptr is not None and use_kernel_spmm(
             batch.num_edges, batch.edges_sorted, x.device):
@@ -181,7 +183,10 @@ def spmm_batch(batch, x=None, *, abs_weights: bool = False):
 
         x_in = x * nm[:, None].to(x.dtype) if batch.node_mask_shrunk else x
         return spmm_csr(x_in.contiguous(), w.to(torch.float32),
-                        batch.senders, batch.row_ptr, batch.num_nodes)
+                        None if w_t is None else w_t.to(torch.float32),
+                        batch.senders, batch.receivers, batch.row_ptr,
+                        batch.receivers_t, batch.senders_t, batch.row_ptr_t,
+                        batch.num_nodes)
     if batch.node_mask_shrunk:
         s, r = batch.senders.long(), batch.receivers.long()
         w = w * (nm[s] & nm[r])
