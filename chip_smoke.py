@@ -16,7 +16,12 @@ each of which raises on failure:
    989 TFLOP/s bf16 tensor cores for the batched product — the larger),
    and one PyTorch library call computing the same function.  K1 and K2
    (and K1's backward, ``d_h`` over the transpose layout) run at the
-   serving graph's shapes; K4, K5 and K6 on the round-3 banded graph of
+   serving graph's shapes; K3's five modes at the dense slice's and the
+   default path's two all-f32 products, each with its route (``"tma"``
+   or ``"generic"``), its bound fraction, its time with a warm L2, the
+   ``"generic"`` route's time and, where an operand is f32, the library
+   call with the cast inside it; then K3 on ragged shapes on either
+   route; K4, K5 and K6 on the round-3 banded graph of
    ``scripts/exp_r3_banded.py`` (N = 65,536, E = 1,048,576, F = 128,
    |s − r| ≤ 448, window 1152);
 4. serving: ``Predictor`` over ``PoolingClassifier`` (GCN → top-k → GCN →
@@ -27,12 +32,12 @@ each of which raises on failure:
 5. dense training (``bench.py::bench_jax`` at full width: 64 graphs × 256
    nodes, ER p = 0.03, 128 features): ``DenseTopkClassifier`` (hidden 128,
    bf16, the batched-product kernel) takes 10 Adam steps; the kernel must
-   launch 4 times a step, and step one's loss and gradients are held
-   against the same model and batch on the CPU;
+   launch 4 times a step, all on its ``"tma"`` route, and step one's loss
+   and gradients are held against the same model and batch on the CPU;
 6. the documented default path on the same graphs: ``prepare_batch`` +
    ``PoolingClassifier(pre_normalized=True)`` trains with the kernel and
    with ``torch.matmul`` in turns (kernel, matmul, matmul, kernel; 3 steps
-   a turn);
+   a turn), the kernel's launches reported by route;
 7. sparse training (``bench.py::bench_jax_large`` at full width: one
    graph, 65,536 nodes, 1,000,000 random edges, 128 features, collated
    with ``sort_edges=True``): the served model trains 20 Adam steps on
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +76,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 REPEATS = 20
+SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's 1.98 GHz boost clock
 REPLACES = "tgp_tpu/ops/pallas/segment_spmm.py:224"  # _grouped_kernel_w
 K2_REPLACES = "tgp_tpu/ops/pallas/segment_spmm.py:205"  # _grouped_kernel
 SOURCE = "tgp_tpu_torch/csrc/segment_spmm.cu"
@@ -148,6 +155,8 @@ def _wrappers():
 def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    routes = _wrappers()["bmm"].launches_by_route
+    routes.update(dict.fromkeys(routes, 0))
 
 
 def read_counts() -> dict:
@@ -162,13 +171,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, flush: torch.Tensor) -> float:
+def median_ms(fn, flush: torch.Tensor | None) -> float:
     """Median device time of ``fn`` over REPEATS launches, each after an
-    L2 flush (the serving path finds the edge arrays cold)."""
+    L2 flush (the serving path finds the edge arrays cold; none when
+    ``flush`` is None) and a spin kernel of SPIN_CYCLES, which keeps the
+    card busy while the host enqueues the events and ``fn``: the events
+    then time the device's work, not the host's enqueue (tens of µs a
+    wrapper call)."""
     fn()
     times = []
     for _ in range(REPEATS):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -191,16 +206,9 @@ def host_us(fn) -> float:
     return 1e6 * (t1 - t0) / REPEATS
 
 
-def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
-               peak, scale, flush, note=None, slack=0.0):
-    """Hold one kernel mode against its plain version, then time all
-    three.  Tolerance: |kernel − plain| ≤ rel_tol · scale (per element:
-    Σ|w·x| of the row, Σₖ|a||b| of the product) + slack · |plain| (one
-    rounding of the output).  ``peak``: flop/s of the kernel's arithmetic
-    on this card."""
-    got = kernel()
-    torch.cuda.synchronize()
-    ref = plain()
+def _worst(name, got, ref, scale, rel_tol, slack=0.0):
+    """Largest |got − ref| and (|got − ref| − slack·|ref|) / scale; raises
+    past ``rel_tol`` or on a non-finite value."""
     err = ((got.float() - ref.float()).abs()
            - slack * ref.float().abs()).clamp(min=0)
     max_abs = float((got.float() - ref.float()).abs().max())
@@ -209,16 +217,31 @@ def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version: max |err| {max_abs}, max err/scale "
                              f"{worst} > {rel_tol}")
+    return max_abs, worst
+
+
+def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
+               peak, scale, flush, note=None, slack=0.0, extra=None):
+    """Hold one kernel mode against its plain version, then time all
+    three.  Tolerance: |kernel − plain| ≤ rel_tol · scale (per element: Σ|w·x| of the row, Σₖ|a||b| of
+    the product) + slack · |plain| (one rounding of the output).  ``peak``:
+    flop/s of the kernel's arithmetic on this card; ``extra``: fields
+    added to the row."""
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    max_abs, worst = _worst(name, got, ref, scale, rel_tol, slack)
+    bound_ms = 1e3 * max(bound_bytes / HBM_BYTES_PER_S, flops / peak)
+    ms = median_ms(kernel, flush)
     row = dict(mode=name, max_abs_err=max_abs, max_rel_err=worst,
-               rel_tol=rel_tol, ms=median_ms(kernel, flush),
-               plain_ms=median_ms(plain, flush),
-               bound_ms=1e3 * max(bound_bytes / HBM_BYTES_PER_S,
-                                  flops / peak),
+               rel_tol=rel_tol, ms=ms, plain_ms=median_ms(plain, flush),
+               bound_ms=bound_ms, bound_fraction=bound_ms / ms,
                bound_by=("bytes" if bound_bytes / HBM_BYTES_PER_S
                          >= flops / peak else "operations"),
                bound_bytes=bound_bytes, flops=flops, peak_flops=peak,
                library_ms=median_ms(library, flush),
                kernel_host_us=host_us(kernel))
+    row.update(extra or {})
     if note:
         row["library"] = note
     print(f"[kernels] {json.dumps(row)}", flush=True)
@@ -377,7 +400,14 @@ def phase_kernels_k3(adj):
     adjacency ``adj [64, 256, 256]`` (its top-left 128 × 128 blocks for
     the post-pool shape): the two forward products, the two backward
     ``db = aᵀ g`` with an f32 cotangent ``g``, and the ``trans_b`` mode
-    (``da = g bᵀ``, which the step does not run)."""
+    (``da = g bᵀ``, which the step does not run); then the default path's
+    products, with the adjacency and the features in f32.  Each row names
+    its route and adds the kernel's time with a warm L2
+    (``warm_l2_ms``), the ``"generic"`` route's time on a copy of ``a``
+    one element off 16-byte alignment (``generic_ms``, held against the
+    plain version first) and, where an operand is f32, ``torch.bmm`` with
+    the cast to bf16 inside the timed call (``library_with_cast_ms``).
+    Then ragged shapes on either route (``[k3_ragged]``)."""
     from tgp_tpu_torch.ops.kernels import bmm as K
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -398,32 +428,90 @@ def phase_kernels_k3(adj):
          False),
         ("trans_b", rnd(B, N, HIDDEN, dtype=f32),
          rnd(B, N, HIDDEN, dtype=bf16), False, True),
+        ("f32 fwd pre", adj.float(), rnd(B, N, HIDDEN, dtype=f32), False,
+         False),
+        ("f32 bwd pre trans_a", adj.float(), rnd(B, N, HIDDEN, dtype=f32),
+         True, False),
     ]
     # torch.bmm with an f32 output from bf16 operands, where this torch
     # has it (aten::bmm.dtype); else bf16 output
     out_f32 = hasattr(torch.ops.aten.bmm, "dtype")
     note = ("torch.bmm(bf16, bf16, out_dtype=float32)" if out_f32
             else "torch.bmm(bf16, bf16) -> bf16")
+    kw = {"out_dtype": f32} if out_f32 else {}
     modes = {}
     for name, a, b, ta, tb in cases:
-        a_op = (a.transpose(1, 2) if ta else a).to(bf16)
-        b_op = (b.transpose(1, 2) if tb else b).to(bf16)
-        kw = {"out_dtype": f32} if out_f32 else {}
+        a_view = a.transpose(1, 2) if ta else a
+        b_view = b.transpose(1, 2) if tb else b
+        a_op, b_op = a_view.to(bf16), b_view.to(bf16)
         n, m = a_op.shape[1:]
         f = b_op.shape[2]
         nbytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
                   + 4 * B * n * f)
         full = f"K3 bmm {name} [{B},{n},{m}]x[{B},{m},{f}]"
+        scale = K.bmm_plain(a.abs(), b.abs(), ta, tb)
+        skewed = torch.empty(a.numel() + 1, dtype=a.dtype,
+                             device="cuda")[1:].view(a.shape).copy_(a)
+        if K.route(skewed, b, ta, tb) != "generic":
+            raise AssertionError(f"{full}: a skewed copy kept the tma route")
+        got = K.bmm(skewed, b, ta, tb)
+        torch.cuda.synchronize()
+        _worst(f"{full} generic route", got, K.bmm_plain(a, b, ta, tb), scale,
+               K3_REL_TOL)
+        extra = {"route": K.route(a, b, ta, tb),
+                 "warm_l2_ms": median_ms(lambda: K.bmm(a, b, ta, tb), None),
+                 "generic_ms": median_ms(lambda: K.bmm(skewed, b, ta, tb),
+                                         flush)}
+        if f32 in (a.dtype, b.dtype):
+            extra["library_with_cast_ms"] = median_ms(
+                lambda: torch.bmm(a_view.to(bf16), b_view.to(bf16), **kw),
+                flush)
         modes[name] = check_mode(
             full, lambda: K.bmm(a, b, ta, tb),
             lambda: K.bmm_plain(a, b, ta, tb),
             lambda: torch.bmm(a_op, b_op, **kw), rel_tol=K3_REL_TOL,
             bound_bytes=nbytes, flops=2 * B * n * m * f,
-            peak=BF16_TC_FLOPS_PER_S,
-            scale=K.bmm_plain(a.abs(), b.abs(), ta, tb), flush=flush,
-            note=note)
+            peak=BF16_TC_FLOPS_PER_S, scale=scale, flush=flush, note=note,
+            extra=extra)
     del flush
+    phase_k3_ragged()
     return modes
+
+
+def phase_k3_ragged():
+    """K3 on ragged shapes in every transpose mode, held against
+    ``bmm_plain``: an aligned one on the ``"tma"`` route (TMA's zero fill
+    and clipped stores at every edge, two column tiles) in bf16 and f32,
+    and an unaligned one on the ``"generic"`` route; each call's route is
+    read from the route counters."""
+    from tgp_tpu_torch.ops.kernels import bmm as K
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for (batch, n, m, f), want in (((3, 200, 136, 120), "tma"),
+                                   ((2, 40, 72, 200), "tma"),
+                                   ((5, 70, 130, 33), "generic")):
+        for dtype in (torch.bfloat16, torch.float32):
+            for ta, tb in ((False, False), (True, False), (False, True)):
+                a = torch.randn((batch, m, n) if ta else (batch, n, m),
+                                generator=gen, device="cuda").to(dtype)
+                b = torch.randn((batch, f, m) if tb else (batch, m, f),
+                                generator=gen, device="cuda").to(dtype)
+                before = dict(K.bmm.launches_by_route)
+                got = K.bmm(a, b, ta, tb)
+                torch.cuda.synchronize()
+                took = [r for r, c in K.bmm.launches_by_route.items()
+                        if c != before[r]]
+                name = (f"K3 bmm [{batch},{n},{m},{f}] "
+                        f"{str(dtype).split('.')[-1]} ta={ta} tb={tb}")
+                if took != [want]:
+                    raise AssertionError(f"{name} took {took}, want {want}")
+                _, worst = _worst(name, got, K.bmm_plain(a, b, ta, tb),
+                                  K.bmm_plain(a.abs(), b.abs(), ta, tb),
+                                  K3_REL_TOL)
+                rows.append(dict(case=name, route=want, max_rel_err=worst))
+    print(f"[k3_ragged] {json.dumps(rows)}", flush=True)
+    return rows
 
 
 def build_model(device, *, pool_mode="auto", use_kernel=None, seed=0):
@@ -567,11 +655,12 @@ def phase_train_dense(card, dense, y, n_edges, profile: bool):
             model.state_dict().items()}
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
 
-    # the main path, counted: 10 steps, K3 four times a step
+    # the main path, counted: 10 steps, K3 four times a step, all "tma"
     reset_counts()
-    step_ms, losses, per_step = [], [], []
+    step_ms, losses, per_step, per_step_tma = [], [], [], []
     for i in range(DENSE_STEPS):
         before = K.bmm.launches
+        before_tma = K.bmm.launches_by_route["tma"]
         if i == 0:  # step one keeps its gradients for the CPU check
             def first():
                 out = _step_one_grads(model, dense, y)
@@ -587,9 +676,12 @@ def phase_train_dense(card, dense, y, n_edges, profile: bool):
         step_ms.append(ms)
         losses.append(float(loss))
         per_step.append(K.bmm.launches - before)
+        per_step_tma.append(K.bmm.launches_by_route["tma"] - before_tma)
     launches = read_counts()
-    if per_step != [4] * DENSE_STEPS:
-        raise AssertionError(f"K3 launches per step {per_step}, want 4")
+    by_route = dict(K.bmm.launches_by_route)
+    if per_step != [4] * DENSE_STEPS or per_step_tma != per_step:
+        raise AssertionError(f"K3 launches per step {per_step}, on the tma "
+                             f"route {per_step_tma}, want 4 and 4")
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite losses {losses}")
 
@@ -614,7 +706,8 @@ def phase_train_dense(card, dense, y, n_edges, profile: bool):
         steps=DENSE_STEPS, step_ms=step_ms, step_ms_median=med,
         edges_per_s=n_edges / (med / 1e3), losses=losses,
         launches=launches, launches_per_step=per_step,
-        step1_loss=loss0, step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
+        bmm_launches_by_route=by_route, step1_loss=loss0,
+        step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
         loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
         grad_rel_tol=GRAD_REL_TOL, cpu_check_s=cpu_s,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -636,6 +729,7 @@ def phase_train_default(card, graphs, labels):
     weights."""
     from tgp_tpu_torch import (DenseGraphBatch, PoolingClassifier,
                                from_graphs, get_pooler, prepare_batch)
+    from tgp_tpu_torch.ops.kernels import bmm as K
 
     g = torch.Generator().manual_seed(1)
     pooler = get_pooler("topk", in_channels=HIDDEN, ratio=0.5,
@@ -650,8 +744,10 @@ def phase_train_default(card, graphs, labels):
                               use_kernel=True, device="cuda", generator=g)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     result = {"card": card, "steps_per_turn": DEFAULT_STEPS,
-              "kernel": {"step_ms": [], "launches": []},
-              "matmul": {"step_ms": [], "launches": []}}
+              "kernel": {"step_ms": [], "launches": [],
+                         "launches_by_route": []},
+              "matmul": {"step_ms": [], "launches": [],
+                         "launches_by_route": []}}
     for route in ("kernel", "matmul", "matmul", "kernel"):
         model.load_state_dict(init)
         for conv in (*model.pre_convs, *model.post_convs):
@@ -673,6 +769,7 @@ def phase_train_default(card, graphs, labels):
         row = result[route]
         row["step_ms"] += [ms for ms, _ in runs]
         row["launches"].append(launches["bmm"])
+        row["launches_by_route"].append(dict(K.bmm.launches_by_route))
         row["losses"] = losses
     for route in ("kernel", "matmul"):
         result[route]["step_ms_median"] = statistics.median(
@@ -904,9 +1001,13 @@ def main(argv=None) -> int:
     print(f"[build] {time.perf_counter() - t0:.2f} s for {sorted(built)}",
           flush=True)
     for name, (secs, log) in built.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"[build] {name}: {secs:.2f} s; " + " | ".join(regs),
-              flush=True)
+        lines = log.splitlines()
+        regs = [ln.strip() for ln in lines if "registers" in ln]
+        spills = sum("spill" in ln and not re.search(
+            r"\b0 bytes spill stores, 0 bytes spill loads", ln)
+            for ln in lines)
+        print(f"[build] {name}: {secs:.2f} s; {spills} spilling; "
+              + " | ".join(regs), flush=True)
 
     from tgp_tpu_torch import from_graphs
     from tgp_tpu_torch.models.inference import geometric_budget

@@ -156,3 +156,71 @@ def test_bmm_rejects_double_transpose_and_bad_inputs():
     empty = K._launch(torch.zeros(2, 0, 4), torch.zeros(2, 4, 3), False,
                       False)
     assert empty.shape == (2, 0, 3) and empty.dtype == torch.float32
+
+
+def _stored(batch, n, m, f, trans_a, trans_b, a_dtype, b_dtype):
+    a = torch.empty((batch, m, n) if trans_a else (batch, n, m),
+                    dtype=getattr(torch, a_dtype))
+    b = torch.empty((batch, f, m) if trans_b else (batch, m, f),
+                    dtype=getattr(torch, b_dtype))
+    return a, b
+
+
+BF, F32 = "bfloat16", "float32"
+ROUTE_CASES = {  # id: ((batch, n, m, f), trans_a, trans_b, a, b dtypes, route)
+    # the dense step's four products (batch cut to 2: the rule ignores it)
+    "fwd_pre": ((2, 256, 256, 128), False, False, BF, BF, "tma"),
+    "fwd_post": ((2, 128, 128, 128), False, False, BF, BF, "tma"),
+    "bwd_pre_trans_a": ((2, 256, 256, 128), True, False, BF, F32, "tma"),
+    "bwd_post_trans_a": ((2, 128, 128, 128), True, False, BF, F32, "tma"),
+    "trans_b": ((2, 256, 128, 256), False, True, F32, BF, "tma"),
+    # the default path's (f32 adjacency and features) products
+    "f32_fwd_pre": ((2, 256, 256, 128), False, False, F32, F32, "tma"),
+    "f32_fwd_post": ((2, 128, 128, 128), False, False, F32, F32, "tma"),
+    "f32_bwd_pre_trans_a": ((2, 256, 256, 128), True, False, F32, F32,
+                            "tma"),
+    "ragged_aligned_bf16": ((3, 200, 136, 120), False, False, BF, BF, "tma"),
+    "ragged_aligned_f32": ((3, 200, 136, 120), False, False, F32, F32,
+                           "tma"),
+    "ragged_aligned_trans_a": ((3, 200, 136, 120), True, False, BF, BF,
+                               "tma"),
+    "ragged_unaligned_bf16": ((5, 70, 130, 33), False, False, BF, BF,
+                              "generic"),
+    "ragged_unaligned_f32": ((5, 70, 130, 33), False, False, F32, F32,
+                             "generic"),
+    # bf16 rows need 8 elements, f32 rows 4
+    "bf16_rows_of_12": ((2, 64, 12, 64), False, False, BF, BF, "generic"),
+    "f32_rows_of_12": ((2, 64, 12, 64), False, False, F32, BF, "tma"),
+    "trans_a_stored_rows_of_20": ((2, 20, 64, 64), True, False, BF, BF,
+                                  "generic"),
+    "trans_b_stored_rows_of_60": ((2, 64, 60, 64), False, True, BF, BF,
+                                  "generic"),
+    # rows fine, but the f32 output's rows are not 16 bytes
+    "f_of_6": ((2, 64, 64, 6), False, True, BF, BF, "generic"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES), ids=list(ROUTE_CASES))
+def test_bmm_route_rule(case):
+    """``route`` is a pure function of shapes, dtypes, flags and base
+    alignment; the dense step's products all take ``"tma"``."""
+    size, ta, tb, adt, bdt, want = ROUTE_CASES[case]
+    a, b = _stored(*size, ta, tb, adt, bdt)
+    assert K.route(a, b, ta, tb) == want
+    assert K.route(a, b, ta, tb) == want  # the same answer again
+
+
+@pytest.mark.parametrize("dtype,offset,want", [
+    ("float32", 1, "generic"), ("float32", 4, "tma"),
+    ("bfloat16", 4, "generic"), ("bfloat16", 8, "tma")])
+def test_bmm_route_rule_reads_base_alignment(dtype, offset, want):
+    """A view whose base sits ``offset`` elements into its storage: 16-byte
+    aligned bases keep ``"tma"``, others go to ``"generic"``."""
+    tdt = getattr(torch, dtype)
+    store = torch.empty(offset + 2 * 64 * 64 + 64, dtype=tdt)
+    assert store.data_ptr() % 16 == 0
+    a = store[offset:offset + 2 * 64 * 64].view(2, 64, 64)
+    b = torch.empty(2, 64, 128, dtype=tdt)
+    assert a.is_contiguous()
+    assert K.route(a, b) == want
+    assert K.route(b.transpose(1, 2).contiguous(), a, False, True) == want

@@ -108,9 +108,15 @@ def test_cuda_kernel_matches_plain(F, dtype, n_pad, hub):
 
 
 BMM_VARIANTS = [(False, False), (True, False), (False, True)]
-# (batch, n, m, f): the dense regime's two shapes and two ragged ones
+# (batch, n, m, f): the dense regime's two shapes, two ragged ones the
+# "tma" route cannot address, and three ragged ones it can (zero fill and
+# clipped stores at every edge; f = 200 takes two column tiles; rows of
+# 16 bytes, far narrower than a box)
 BMM_SIZES = [(64, 256, 256, 128), (64, 128, 128, 128), (3, 40, 24, 17),
-             (5, 70, 130, 33)]
+             (5, 70, 130, 33), (3, 200, 136, 120), (2, 40, 72, 200),
+             (2, 24, 8, 8)]
+BMM_TMA_SIZES = {(64, 256, 256, 128), (64, 128, 128, 128),
+                 (3, 200, 136, 120), (2, 40, 72, 200), (2, 24, 8, 8)}
 
 
 def _bmm_operands(batch, n, m, f, trans_a, trans_b, dtype, seed=0):
@@ -139,14 +145,18 @@ def _bmm_check(got, ref, scale, slack=0.0):
                          ids=["nn", "trans_a", "trans_b"])
 def test_cuda_bmm_matches_plain(trans_a, trans_b, size, dtype):
     """K3's kernel against ``bmm_plain`` on the card (TF32 off), one
-    counted launch per call."""
+    counted launch per call, on the route the shape rule names."""
     _skip_without_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     a, b = _bmm_operands(*size, trans_a, trans_b, dtype)
+    want = "tma" if size in BMM_TMA_SIZES else "generic"
+    assert BMM.route(a, b, trans_a, trans_b) == want
     before = BMM.bmm.launches
+    before_route = BMM.bmm.launches_by_route[want]
     got = BMM.bmm(a, b, trans_a, trans_b)
     torch.cuda.synchronize()
     assert BMM.bmm.launches == before + 1
+    assert BMM.bmm.launches_by_route[want] == before_route + 1
     assert got.dtype == torch.float32 and got.shape == (size[0], size[1],
                                                         size[3])
     _bmm_check(got, BMM.bmm_plain(a, b, trans_a, trans_b),
@@ -190,6 +200,80 @@ def test_cuda_bmm_backward_matches_plain_autograd(trans_a, trans_b, dtype):
         sa, sb = (BMM.bmm_plain(ga, ya, False, False),
                   BMM.bmm_plain(ga, xa, True, False))
     slack = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    _bmm_check(grads["cuda"][0], grads["cpu"][0], sa, slack)
+    _bmm_check(grads["cuda"][1], grads["cpu"][1], sb, slack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", BMM_VARIANTS,
+                         ids=["nn", "trans_a", "trans_b"])
+def test_cuda_bmm_f32_rows_of_four_take_tma_route(trans_a, trans_b):
+    """f32 operands whose stored rows are 4 wide (16 bytes, the least TMA
+    and the converting producer take) on the "tma" route."""
+    _skip_without_card()
+    a, b = _bmm_operands(3, 20, 4, 4, trans_a, trans_b, "float32", seed=8)
+    assert BMM.route(a, b, trans_a, trans_b) == "tma"
+    before = BMM.bmm.launches_by_route["tma"]
+    got = BMM.bmm(a, b, trans_a, trans_b)
+    torch.cuda.synchronize()
+    assert BMM.bmm.launches_by_route["tma"] == before + 1
+    _bmm_check(got, BMM.bmm_plain(a, b, trans_a, trans_b),
+               BMM.bmm_plain(a.abs(), b.abs(), trans_a, trans_b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bmm_misaligned_view_takes_generic_route(dtype):
+    """An operand whose base is off 16 bytes goes to the "generic" route
+    (never to TMA) and still agrees with ``bmm_plain``."""
+    _skip_without_card()
+    tdt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randn(2 * 64 * 64 + 1, generator=g, device="cuda").to(tdt)
+    a = a[1:].view(2, 64, 64)
+    b = torch.randn(2, 64, 128, generator=g, device="cuda").to(tdt)
+    assert BMM.route(a, b) == "generic"
+    before = BMM.bmm.launches_by_route["generic"]
+    got = BMM.bmm(a, b)
+    torch.cuda.synchronize()
+    assert BMM.bmm.launches_by_route["generic"] == before + 1
+    _bmm_check(got, BMM.bmm_plain(a, b), BMM.bmm_plain(a.abs(), b.abs()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("trans_a,trans_b", BMM_VARIANTS,
+                         ids=["nn", "trans_a", "trans_b"])
+def test_cuda_bmm_backward_on_tma_route(trans_a, trans_b, dtype):
+    """The autograd backward at an aligned ragged size: all three products
+    on the "tma" route, each gradient within 1e-5 of its Σ|·||·| (plus
+    one bf16 rounding) of the CPU run."""
+    _skip_without_card()
+    size = (3, 200, 136, 120)
+    a, b = _bmm_operands(*size, trans_a, trans_b, dtype, seed=6)
+    g = torch.randn(size[0], size[1], size[3], device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        x = a.detach().to(dev).requires_grad_()
+        y = b.detach().to(dev).requires_grad_()
+        before = BMM.bmm.launches_by_route["tma"]
+        BMM.bmm(x, y, trans_a, trans_b).backward(g.to(dev))
+        assert BMM.bmm.launches_by_route["tma"] - before == (
+            3 if dev == "cuda" else 0)
+        grads[dev] = (x.grad, y.grad)
+    slack = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    ga = g.abs().cpu()
+    xa, ya = a.abs().float().cpu(), b.abs().float().cpu()
+    if not trans_a and not trans_b:
+        sa, sb = (BMM.bmm_plain(ga, ya, False, True),
+                  BMM.bmm_plain(xa, ga, True, False))
+    elif trans_a:
+        sa, sb = (BMM.bmm_plain(ya, ga, False, True),
+                  BMM.bmm_plain(xa, ga, False, False))
+    else:
+        sa, sb = (BMM.bmm_plain(ga, ya, False, False),
+                  BMM.bmm_plain(ga, xa, True, False))
     _bmm_check(grads["cuda"][0], grads["cpu"][0], sa, slack)
     _bmm_check(grads["cuda"][1], grads["cpu"][1], sb, slack)
 

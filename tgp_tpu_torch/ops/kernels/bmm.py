@@ -13,13 +13,21 @@ The gradient mirrors ``_bmm_bwd``: ``da``/``db`` are the same product with
 other transpose flags (no transposed copy is written), cast back to each
 operand's dtype, and computed only for the operands that need one.
 
-Bound on an H100: bytes (about 50 flops a byte at the dense regime's
-shapes, far below the tensor cores' balance); see the source for what the
-kernel does about it.
+Bound on an H100: bytes (32–51 flops a byte at the dense regime's shapes,
+far below the tensor cores' balance); see the source for what the kernel
+does about it.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise — there is no fallback.  Launches
-(the backward's included) are counted in ``bmm.launches``.
+CUDA tensors launch the kernel or raise — there is no fallback.  On the
+card the source has two routes, and :func:`route` picks one from the
+shapes, dtypes, flags and base addresses alone (never by catching a
+failure): ``"tma"`` (TMA loads into a swizzled shared-memory ring,
+``wgmma``) when both operands' bases are 16-byte aligned, their stored
+rows a multiple of 16 bytes (bf16 inner extent % 8, f32 % 4) and the
+output width ``f % 4 == 0``; ``"generic"`` (WMMA on register-staged tiles,
+any shape) otherwise.  The dense step's products all take ``"tma"``.
+Launches (the backward's included) are counted in ``bmm.launches`` and,
+by route, in ``bmm.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -29,11 +37,14 @@ import functools
 
 import torch
 
-__all__ = ["bmm", "bmm_plain"]
+__all__ = ["bmm", "bmm_plain", "route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel puts the batch on the grid's z dimension
 MAX_BATCH = 65535
+#: the C interface's code for each route
+_ROUTE_CODE = {"tma": 1, "generic": 0}
+ROUTES = tuple(_ROUTE_CODE)
 
 
 def _check_flags(trans_a: bool, trans_b: bool) -> None:
@@ -55,6 +66,20 @@ def bmm_plain(a: torch.Tensor, b: torch.Tensor, trans_a: bool = False,
                         _op(b, trans_b).to(torch.bfloat16).float())
 
 
+def route(a: torch.Tensor, b: torch.Tensor, trans_a: bool = False,
+          trans_b: bool = False) -> str:
+    """The kernel route for contiguous 3-D ``a``, ``b`` (stored shapes, as
+    :func:`bmm` takes them): ``"tma"`` when TMA can address both operands
+    and the output — bases 16-byte aligned, stored rows a multiple of 16
+    bytes, ``f % 4 == 0`` — else ``"generic"``."""
+    def rows_ok(t):
+        width = 8 if t.dtype == torch.bfloat16 else 4
+        return t.shape[-1] % width == 0 and t.data_ptr() % 16 == 0
+
+    f = b.shape[1] if trans_b else b.shape[2]
+    return "tma" if rows_ok(a) and rows_ok(b) and f % 4 == 0 else "generic"
+
+
 # ---------------------------------------------------------------------------
 # kernel launch
 # ---------------------------------------------------------------------------
@@ -65,7 +90,7 @@ def _lib():
     from tgp_tpu_torch.ops.kernels._build import load
 
     lib = load("bmm")
-    lib.tgp_bmm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+    lib.tgp_bmm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     lib.tgp_bmm.restype = ctypes.c_int
     lib.tgp_bmm_error_string.argtypes = [ctypes.c_int]
@@ -75,7 +100,8 @@ def _lib():
 
 def _launch(a: torch.Tensor, b: torch.Tensor, trans_a: bool,
             trans_b: bool) -> torch.Tensor:
-    """Validate, allocate the f32 output and launch on the current stream."""
+    """Validate, allocate the f32 output and launch on the current stream,
+    on :func:`route`'s route."""
     _check_flags(trans_a, trans_b)
     for name, t in (("a", a), ("b", b)):
         if t.dtype not in _DTYPE_CODE:
@@ -101,16 +127,19 @@ def _launch(a: torch.Tensor, b: torch.Tensor, trans_a: bool,
     if batch == 0 or n == 0 or f == 0 or m == 0:
         return torch.zeros(batch, n, f, dtype=torch.float32, device=a.device)
     out = torch.empty(batch, n, f, dtype=torch.float32, device=a.device)
+    chosen = route(a, b, trans_a, trans_b)
     lib = _lib()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.tgp_bmm(a.data_ptr(), b.data_ptr(), out.data_ptr(), batch,
                           n, m, f, _DTYPE_CODE[a.dtype], _DTYPE_CODE[b.dtype],
-                          int(trans_a), int(trans_b), stream)
+                          int(trans_a), int(trans_b), _ROUTE_CODE[chosen],
+                          stream)
     if err != 0:
-        raise RuntimeError("bmm kernel launch failed: "
+        raise RuntimeError(f"bmm kernel launch failed ({chosen} route): "
                            + lib.tgp_bmm_error_string(err).decode())
     bmm.launches += 1
+    bmm.launches_by_route[chosen] += 1
     return out
 
 
@@ -166,3 +195,4 @@ def bmm(a: torch.Tensor, b: torch.Tensor, trans_a: bool = False,
 
 
 bmm.launches = 0
+bmm.launches_by_route = dict.fromkeys(ROUTES, 0)
