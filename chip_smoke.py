@@ -8,7 +8,8 @@ the CUDA kernels from ``tgp_tpu_torch/csrc`` into ``build/`` first.  Phases,
 each of which raises on failure:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the kernels (one ``nvcc`` per source, all at once);
+2. build the kernels (one ``nvcc`` per source, all at once), with each
+   kernel's registers, stack frame and spill stores and loads;
 3. every kernel against its plain PyTorch version at its path's shapes,
    with times: the kernel, the plain version, the least time the card
    could take (bytes over 3.35 TB/s or flops over the peak of the
@@ -16,7 +17,9 @@ each of which raises on failure:
    989 TFLOP/s bf16 tensor cores for the batched product — the larger),
    and one PyTorch library call computing the same function.  K1 and K2
    (and K1's backward, ``d_h`` over the transpose layout) run at the
-   serving graph's shapes; K3's five modes at the dense slice's and the
+   serving graph's shapes, each also on the real edges alone
+   (``no_pad_ms``) and with its gather rate (``gather_tb_s``); every
+   mode of ``segment_spmm.cu`` runs twice and must give the same bits; K3's five modes at the dense slice's and the
    default path's two all-f32 products, each with its route (``"tma"``
    or ``"generic"``), its bound fraction, its time with a warm L2, the
    ``"generic"`` route's time and, where an operand is f32, the library
@@ -163,6 +166,48 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def _demangle(names):
+    """C++ names of mangled symbols, by ``c++filt`` where it exists."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        got = out.stdout.splitlines()
+        return got if out.returncode == 0 and len(got) == len(names) else names
+    except OSError:
+        return names
+
+
+def ptxas_kernels(log: str) -> list:
+    """Each entry function of an ``nvcc -Xptxas -v`` log with its
+    registers, stack frame and spill stores and loads (bytes)."""
+    props, regs, order, cur = {}, {}, [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1)
+            order.append(cur)
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            props[cur] = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            regs[cur] = int(m.group(1))
+    names = _demangle(order)
+    return [dict(kernel=re.sub(r"^void |\(.*", "", pretty.replace(
+                     "(anonymous namespace)::", "")),
+                 registers=regs.get(k), stack_frame=props.get(k, (0,) * 3)[0],
+                 spill_stores=props.get(k, (0,) * 3)[1],
+                 spill_loads=props.get(k, (0,) * 3)[2])
+            for k, pretty in zip(order, names)]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -221,16 +266,27 @@ def _worst(name, got, ref, scale, rel_tol, slack=0.0):
 
 
 def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
-               peak, scale, flush, note=None, slack=0.0, extra=None):
+               peak, scale, flush, note=None, slack=0.0, extra=None,
+               gather_bytes=None, twice=False):
     """Hold one kernel mode against its plain version, then time all
     three.  Tolerance: |kernel − plain| ≤ rel_tol · scale (per element: Σ|w·x| of the row, Σₖ|a||b| of
     the product) + slack · |plain| (one rounding of the output).  ``peak``:
     flop/s of the kernel's arithmetic on this card; ``extra``: fields
-    added to the row."""
+    added to the row; ``gather_bytes``: the bytes the kernel gathers
+    (E·F·itemsize), reported with their rate ``gather_tb_s``; ``twice``:
+    run the kernel again on the same inputs and fail unless the two
+    results are equal bit for bit."""
     got = kernel()
     torch.cuda.synchronize()
     ref = plain()
     max_abs, worst = _worst(name, got, ref, scale, rel_tol, slack)
+    if twice:
+        again = kernel()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(
+                f"{name}: two runs on the same inputs differ (max |diff| "
+                f"{float((got.float() - again.float()).abs().max())})")
     bound_ms = 1e3 * max(bound_bytes / HBM_BYTES_PER_S, flops / peak)
     ms = median_ms(kernel, flush)
     row = dict(mode=name, max_abs_err=max_abs, max_rel_err=worst,
@@ -241,6 +297,11 @@ def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
                bound_bytes=bound_bytes, flops=flops, peak_flops=peak,
                library_ms=median_ms(library, flush),
                kernel_host_us=host_us(kernel))
+    if twice:
+        row["bit_equal_runs"] = True
+    if gather_bytes is not None:
+        row.update(gather_bytes=gather_bytes,
+                   gather_tb_s=gather_bytes / (ms * 1e-3) / 1e12)
     row.update(extra or {})
     if note:
         row["library"] = note
@@ -250,7 +311,10 @@ def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
 
 def phase_kernels(batch):
     """Each kernel mode the serving path runs (and the K2 mode) at its
-    shapes, on the collated request's own CSR arrays."""
+    shapes, on the collated request's own CSR arrays, each run twice and
+    required bit-equal; ``no_pad_ms`` times the same call on the real
+    edges only (the collator's padding edges, all in row 0, dropped and
+    the offsets rebuilt)."""
     from tgp_tpu_torch.ops.kernels import segment_spmm as K
 
     N = batch.num_nodes
@@ -262,6 +326,11 @@ def phase_kernels(batch):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     csr_bytes = 4 * (2 * E + rows + 1)  # idx, w, row_ptr
     modes = {}
+    # the real edges alone, in both layouts
+    real = batch.edge_mask
+    idx_r, w_r = idx[real].contiguous(), w[real].contiguous()
+    rp_r = K.build_row_ptr(batch.receivers[real], rows)
+    real_t = real[torch.argsort(batch.senders.long(), stable=True)]
 
     def sparse_mm(values, cols, dense):
         a = torch.sparse_csr_tensor(row_ptr, cols, values.to(dense.dtype),
@@ -280,26 +349,35 @@ def phase_kernels(batch):
         scale = K.spmm_csr_plain(x.float().abs(), weights.abs(), idx,
                                  row_ptr, N)
         isz = x.element_size()
+        w_real = weights[real].contiguous()
         name = f"K1 spmm_csr F={F} {str(dtype).split('.')[-1]}"
         modes[name] = check_mode(
             name, lambda: K.spmm_csr(x, weights, None, idx, None, row_ptr,
-                                 None, None, None, N),
+                                     None, None, None, N),
             lambda: K.spmm_csr_plain(x, weights, idx, row_ptr, N),
             sparse_mm(weights, idx, x),
-            rel_tol=1e-2 if dtype == torch.bfloat16 else 1e-4,
-            bound_bytes=csr_bytes + 2 * N * F * isz, flops=2 * E * F,
-            peak=FP32_FLOPS_PER_S, scale=scale, flush=flush)
+            rel_tol=REL_TOL, slack=BF16_ULP if dtype == torch.bfloat16
+            else 0.0, bound_bytes=csr_bytes + 2 * N * F * isz,
+            flops=2 * E * F, peak=FP32_FLOPS_PER_S, scale=scale, flush=flush,
+            gather_bytes=E * F * isz, twice=True,
+            extra={"no_pad_ms": median_ms(
+                lambda: K.spmm_csr(x, w_real, None, idx_r, None, rp_r, None,
+                                   None, None, N), flush)})
 
     # K1's backward: d_h = Aᵀg over the sender-sorted transpose layout, as
-    # the gradient runs it (w_t rounded to the bf16 cotangent's dtype)
+    # the gradient runs it (the kernel rounds w_t to the bf16 cotangent's
+    # dtype and clamps the receivers)
     g = torch.randn(N, FEATURES, generator=gen, device="cuda").to(
         torch.bfloat16)
-    w_t = batch.edge_weight_t.to(torch.bfloat16).float()
+    w_t = batch.edge_weight_t.to(torch.float32)
     idx_t = batch.receivers_t.clamp(0, N - 1)
     rp_t = batch.row_ptr_t
+    w_tb = w_t.to(torch.bfloat16).float()
     scale = K.spmm_csr_plain(g.float().abs(), w_t.abs(), idx_t, rp_t, N)
-    a_t = torch.sparse_csr_tensor(rp_t, idx_t, w_t.to(torch.bfloat16),
+    a_t = torch.sparse_csr_tensor(rp_t, idx_t, w_tb.to(torch.bfloat16),
                                   size=(rows, N), check_invariants=False)
+    idx_tr, w_tr = idx_t[real_t].contiguous(), w_t[real_t].contiguous()
+    rp_tr = K.build_row_ptr(batch.senders_t[real_t], rows)
     name = "K1 spmm_csr backward d_h F=128 bfloat16"
     modes[name] = check_mode(
         name, lambda: K.spmm_csr(g, w_t, None, idx_t, None, rp_t, None,
@@ -308,12 +386,16 @@ def phase_kernels(batch):
         lambda: torch.sparse.mm(a_t, g), rel_tol=REL_TOL, slack=BF16_ULP,
         bound_bytes=csr_bytes + 2 * N * FEATURES * 2,
         flops=2 * E * FEATURES, peak=FP32_FLOPS_PER_S, scale=scale,
-        flush=flush)
+        flush=flush, gather_bytes=E * FEATURES * 2, twice=True,
+        extra={"no_pad_ms": median_ms(
+            lambda: K.spmm_csr(g, w_tr, None, idx_tr, None, rp_tr, None,
+                               None, None, N), flush)})
 
     # K2 mode: receiver-sorted messages [E, F], no gather, no weight
     msgs = (torch.randn(E, FEATURES, generator=gen, device="cuda")
             * w[:, None]).to(torch.bfloat16)
     rec = batch.receivers
+    msgs_r, rec_r = msgs[real].contiguous(), rec[real].contiguous()
     scale = K.segment_sum_sorted_plain(msgs.float().abs(), rec, N, row_ptr)
     ones = torch.ones(E, device="cuda")
     cols = torch.arange(E, dtype=torch.int32, device="cuda")
@@ -321,9 +403,12 @@ def phase_kernels(batch):
     modes[name] = check_mode(
         name, lambda: K.segment_sum_sorted(msgs, rec, N, row_ptr),
         lambda: K.segment_sum_sorted_plain(msgs, rec, N, row_ptr),
-        sparse_mm(ones, cols, msgs), rel_tol=1e-2,
+        sparse_mm(ones, cols, msgs), rel_tol=REL_TOL, slack=BF16_ULP,
         bound_bytes=4 * (rows + 1) + 2 * E * FEATURES + 2 * N * FEATURES,
-        flops=E * FEATURES, peak=FP32_FLOPS_PER_S, scale=scale, flush=flush)
+        flops=E * FEATURES, peak=FP32_FLOPS_PER_S, scale=scale, flush=flush,
+        gather_bytes=E * FEATURES * 2, twice=True,
+        extra={"no_pad_ms": median_ms(
+            lambda: K.segment_sum_sorted(msgs_r, rec_r, N, rp_r), flush)})
     del flush
     return modes
 
@@ -362,7 +447,7 @@ def phase_kernels_banded():
         slack=BF16_ULP, bound_bytes=4 * (N + 1) + 2 * E * F + 2 * N * F,
         flops=E * F, peak=FP32_FLOPS_PER_S,
         scale=K.sorted_segment_sum_plain(msgs.float().abs(), r, rp, N),
-        flush=flush)
+        flush=flush, gather_bytes=2 * E * F, twice=True)
 
     a_k5 = csr(s, w.to(bf16), N)
     name = f"K5 banded_sorted_spmm F=128 bfloat16 window={window}"
@@ -374,7 +459,7 @@ def phase_kernels_banded():
         peak=FP32_FLOPS_PER_S,
         scale=K.banded_sorted_spmm_plain(xb.float().abs(), s, rp, w.abs(),
                                          N, window=window),
-        flush=flush)
+        flush=flush, gather_bytes=2 * E * F, twice=True)
 
     b = torch.randn(N, F, generator=gen, device="cuda")
     # the library's SDDMM: (b @ xᵀ) sampled at (r, s), one value per edge;
@@ -1001,13 +1086,15 @@ def main(argv=None) -> int:
     print(f"[build] {time.perf_counter() - t0:.2f} s for {sorted(built)}",
           flush=True)
     for name, (secs, log) in built.items():
-        lines = log.splitlines()
-        regs = [ln.strip() for ln in lines if "registers" in ln]
-        spills = sum("spill" in ln and not re.search(
-            r"\b0 bytes spill stores, 0 bytes spill loads", ln)
-            for ln in lines)
-        print(f"[build] {name}: {secs:.2f} s; {spills} spilling; "
-              + " | ".join(regs), flush=True)
+        kernels = ptxas_kernels(log)
+        spilling = sum(k["spill_stores"] + k["spill_loads"] > 0
+                       for k in kernels)
+        print(f"[build] {name}: {secs:.2f} s; {len(kernels)} kernels, "
+              f"{spilling} spilling; " + " | ".join(
+                  f"{k['kernel']}: {k['registers']} registers, "
+                  f"{k['stack_frame']} B stack frame, {k['spill_stores']} B "
+                  f"spill stores, {k['spill_loads']} B spill loads"
+                  for k in kernels), flush=True)
 
     from tgp_tpu_torch import from_graphs
     from tgp_tpu_torch.models.inference import geometric_budget

@@ -1,8 +1,9 @@
 """The CUDA kernels of ``tgp_tpu_torch/csrc/`` (``segment_spmm.cu`` in
 its K1, K2, K4 and windowed K5 modes and K1's backward, ``bmm.cu``,
-``sddmm.cu``) against their plain PyTorch versions, on the card.  Without
-one the tests skip; on a GPU machine (which need not have JAX) run them
-alone:
+``sddmm.cu``) against their plain PyTorch versions, on the card, and
+``segment_spmm.cu``'s runs on the same inputs against each other (its sum
+order is fixed, so they are equal bit for bit).  Without one the tests
+skip; on a GPU machine (which need not have JAX) run them alone:
 
     python3 -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda_kernels.py
 
@@ -45,6 +46,55 @@ def _csr_case(seed, F, n=N_NODES, e=900, n_pad=N_PAD_EDGES, hub=0):
     x = rng.normal(size=(n, F)).astype(np.float32)
     return dict(x=x, s=s, r=r, w=w, rp=rp, s_t=s[perm], r_t=r[perm],
                 w_t=w[perm], rp_t=rp_t, n=n)
+
+
+#: edges a warp of segment_spmm.cu sums in its narrow mode (F <= 4,
+#: ``kNarrowRange``); the wide mode splits rows longer than
+#: ``K.EDGES_PER_ITEM`` into chunks of that many
+NARROW_CHUNK = 256
+
+
+def _chunk_of(F):
+    return NARROW_CHUNK if F <= 4 else K.EDGES_PER_ITEM
+
+
+def _boundary_lengths(case, C):
+    """Row lengths (0: an empty row) that put row ends on and across the
+    kernel's C-edge chunks."""
+    return {
+        # a row ends exactly on a chunk boundary, and one spans exactly
+        # two chunks, boundary to boundary
+        "ends_on_boundary": [C - 5, 5, 2 * C, 7, 0, 9],
+        # the long row is the last row
+        "long_last": [3, 0, 4, 5] * 10 + [5 * C // 2],
+        # a row of >= 3 chunks starting and ending mid-chunk
+        "long_middle": [6, 1, 0, 11] * 5 + [3 * C + 17] + [2, 0, 9] * 5,
+        # runs of empty rows longer than a warp, between long rows
+        "empty_runs": [5, 3] + [0] * 100 + [4, 6, 2] + [0] * 40 + [C + 3],
+        "all_empty": [0] * 40,
+        # fewer edges than one chunk
+        "short": [3, 1, 0, 7, 2, 5],
+    }[case]
+
+
+BOUNDARY_CASES = ["ends_on_boundary", "long_last", "long_middle",
+                  "empty_runs", "all_empty", "short"]
+
+
+def _rows_case(lengths, F, seed=0, n_x=300):
+    """Receiver-sorted edges with the given row lengths, signed weights,
+    and CSR offsets over the rows padded to 256."""
+    rng = np.random.default_rng(seed)
+    n = len(lengths)
+    rp = np.zeros(-(-n // 256) * 256 + 1, np.int32)
+    rp[1:n + 1] = np.cumsum(lengths)
+    rp[n + 1:] = rp[n]
+    e = int(rp[n])
+    w = ((rng.random(e) + 0.1) * rng.choice([-1.0, 1.0], e)).astype(np.float32)
+    return dict(x=rng.normal(size=(n_x, F)).astype(np.float32),
+                s=rng.integers(0, n_x, e).astype(np.int32),
+                r=np.repeat(np.arange(n), lengths).astype(np.int32), w=w,
+                rp=rp, n=n)
 
 
 def _layout(c, make):
@@ -105,6 +155,90 @@ def test_cuda_kernel_matches_plain(F, dtype, n_pad, hub):
     scale2 = np.zeros((c["n"], F))
     np.add.at(scale2, c["r"], np.abs(msgs.float().cpu().numpy()))
     _assert_rel(got2.float().cpu(), ref2.float().cpu(), rel, scale2)
+
+
+def _twice_equal(run):
+    """``run()`` twice on the same inputs: equal bit for bit."""
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    return first
+
+
+def _close(got, ref, scale, dtype):
+    """|kernel − plain| ≤ 1e-5 of Σ|terms| (f32 sums in other orders),
+    plus one bf16 rounding of the output in bf16."""
+    got, ref, scale = got.float().cpu(), ref.float().cpu(), scale.float().cpu()
+    slack = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert ((got - ref).abs() <= 1e-5 * scale + slack * ref.abs()
+            + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 2, 8, 128, 130])
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+def test_cuda_spmm_boundaries(case, F, dtype):
+    """K1 (gather) and K4 (no gather) on layouts whose rows end on, start
+    inside and span the kernel's edge chunks, with runs of empty rows,
+    no edges at all, or fewer edges than one chunk: each run twice,
+    bit-equal, and held to its plain version."""
+    _skip_without_card()
+    c = _rows_case(_boundary_lengths(case, _chunk_of(F)), F, seed=F)
+    tdt = getattr(torch, dtype)
+    x = torch.tensor(c["x"], device="cuda").to(tdt)
+    w, s, r, rp = (torch.tensor(c[k], device="cuda")
+                   for k in ("w", "s", "r", "rp"))
+    n = c["n"]
+    before = K.spmm_csr.launches
+    got = _twice_equal(lambda: K.spmm_csr(x, w, None, s, None, rp, None,
+                                          None, None, n))
+    assert K.spmm_csr.launches == before + 2
+    _close(got, K.spmm_csr_plain(x, w, s, rp, n),
+           K.spmm_csr_plain(x.float().abs(), w.abs(), s, rp, n), dtype)
+    msgs = x[s.long()].contiguous()
+    got = _twice_equal(lambda: K.sorted_segment_sum(msgs, r, rp, n))
+    _close(got, K.sorted_segment_sum_plain(msgs, r, rp, n),
+           K.sorted_segment_sum_plain(msgs.float().abs(), r, rp, n), dtype)
+    if case == "all_empty":
+        assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 8, 128, 130])
+def test_cuda_runs_are_bit_equal(F, dtype):
+    """K1, K1's backward (``d_h``), K2, K4 and K5 each run twice on the same
+    inputs, with a 3000-edge padding row and a 700-edge hub: equal bit for
+    bit (no float atomics; every sum in an order the layout fixes)."""
+    _skip_without_card()
+    c = _csr_case(60 + F, F, e=1600, n_pad=3000, hub=700)
+    tdt = getattr(torch, dtype)
+    x = torch.tensor(c["x"], device="cuda").to(tdt)
+    layout = _layout(c, lambda a: torch.tensor(a, device="cuda"))
+    w, s, rp = layout[0], layout[2], layout[4]
+    n = c["n"]
+    _twice_equal(lambda: K.spmm_csr(x, *layout, n))
+    g = torch.tensor(np.random.default_rng(F).normal(size=(n, F)),
+                     device="cuda").to(tdt)
+
+    def d_h():
+        h = x.detach().clone().requires_grad_()
+        K.spmm_csr(h, *layout, n).backward(g)
+        return h.grad
+
+    _twice_equal(d_h)
+    msgs = x[s.long()].contiguous()
+    r = torch.tensor(c["r"], device="cuda")
+    _twice_equal(lambda: K.segment_sum_sorted(msgs, r, n))
+    _twice_equal(lambda: K.sorted_segment_sum(msgs, r, rp, n))
+    xb, sb, _, wb, rpb, nb = _band_case(F, F)
+    xb = torch.tensor(xb, device="cuda").to(tdt)
+    sb, wb, rpb = (torch.tensor(a, device="cuda") for a in (sb, wb, rpb))
+    _twice_equal(lambda: K.banded_sorted_spmm(xb, sb, rpb, wb, nb,
+                                              window=256))
 
 
 BMM_VARIANTS = [(False, False), (True, False), (False, True)]

@@ -11,35 +11,59 @@
 //     segment-sum of receiver-sorted messages (idx = null, w = null);
 //   * _banded_kernel / banded_sorted_spmm_pallas (K5), run by spmm_banded:
 //     the windowed mode (win_base != null).  Row r's edges add only senders
-//     in [win_base[r / block_rows], + window) that lie below n_x, and each
-//     weight is rounded to x's type before the product, as the TPU kernel's
-//     one-hot gather from its VMEM window of x does.  The TPU kernel staged
-//     that window in VMEM to turn the gather into a matmul; here the
-//     gather is the same register gather as K1's (x's rows come from L2),
-//     and the window is only the mask that keeps the function the same.
-//     A first, small kernel finds each block's window start (one thread
-//     block per receiver block, a min over its senders), so the wrapper
-//     adds no PyTorch ops of its own.
+//     in [win_base[r / block_rows], + window) that lie below n_x.  The TPU
+//     kernel staged that window in VMEM to turn the gather into a matmul;
+//     here the gather is the same register gather as K1's (x's rows come
+//     from L2), and the window is only the mask that keeps the function
+//     the same.  A first, small kernel finds each block's window start
+//     (one thread block per receiver block, a min over its senders).
+// Every mode rounds each weight to x's type before its product, as the
+// TPU kernels' one-hot * w in the messages' dtype does; outside the
+// windowed mode a gather index is clamped to [0, n_x), as JAX's gather
+// and the backward's clip of the receivers do.
 //
 // What bounds it on an H100: bytes.  It does 2 flops per gathered element,
 // far below the card's ~295 flop/byte balance point.  The least traffic is
 // idx + w + row_ptr + one read of x + one write of out; the gathered rows
-// themselves (E*F elements) are served from L2 when x fits in its 50 MB.
+// themselves (E*F elements, each row of x about E/N times) come from L2
+// while x fits in its 50 MB, so the rate to aim at is L2's gather rate.
 //
-// What the design does about it: the TPU kernel gathered x[idx] into an
-// [E, F] array in device memory and summed it with a one-hot matmul per
-// edge chunk.  Here one warp owns a slice of at most S edges of one output
-// row, loads its edge indices and weights once (one per lane), and gathers
-// x[idx_e] straight into f32 registers with 16-byte vector loads, so no
-// [E, F] rows and no padding of E ever reach device memory.  Output rows
-// are written once, in x's dtype.  Rows longer than S edges (the padding
-// edges make row 0 one) are split across warps, so no warp walks more than
-// S edges.  When a row is narrower than 32 lanes' worth of vectors, the
-// warp splits into lane groups that walk different edges and meet by
-// shuffles at the end.
+// What the design does about it.  No warp sums more than S edges of one
+// row in the wide mode, nor more than 256 edges in the narrow one, so a
+// long row (the collator's padding makes row 0 tens of thousands of edges
+// long) is shared by many warps.  Two modes:
+//   * wide rows (F > 4, or the windowed mode): a warp per row sums a row
+//     of at most S edges, lanes across columns in 16-byte vectors and lane
+//     groups across edges, gathering x[idx_e] straight into f32 registers;
+//     a longer row's first S edges go to its own warp and the rest to the
+//     tail warps of the S-edge chunks they lie in, which come first in the
+//     grid so the long rows never trail it;
+//   * narrow rows (F <= 4, one vector or less a row): warp k owns the 256
+//     edges [row_ptr[0] + 256k, + 256), each lane 8 consecutive ones; a
+//     lane loads its indices, weights and rows of x together, sums its own
+//     rows in order, and a segmented scan of the lanes' open sums (keyed by
+//     row, by shuffles) finishes rows that cross lanes.  Many rows a warp;
+//     rows with no edges are zeroed by row index, a few per warp.
+// The warps of a long row keep the last row of x they loaded and load
+// again only for another one, so the padding row (sender 0 many times)
+// reads x[0] once a lane instead of once an edge.
+// A row that one warp cannot finish is summed piece by piece: each piece
+// goes with a plain store to its own f32 slot, the warp counts itself on
+// the row's integer counter, and the last of the row's warps to arrive
+// adds the pieces in chunk order and writes the row.  A warp finds the row
+// of a chunk by a 32-way search of row_ptr (about 4 dependent loads).
 //
-// Plain C interface (bound with ctypes); the caller allocates `out`, passes
-// PyTorch's current stream, and reads the returned cudaError_t.
+// Why the sum order is fixed: every f32 addition happens in an order set
+// by the layout alone (a warp's lanes and edges, the scan's tree, the
+// pieces in chunk order); only which warp does the last addition varies,
+// and it adds the same numbers in the same order.  No float atomics.
+// The counters reset themselves: the last arriver sets its counter back
+// to 0, so the caller keeps one zeroed counter buffer per stream and no
+// memset runs per call.
+//
+// Plain C interface (bound with ctypes); the caller allocates `out`, the
+// piece slots and the counters, passes PyTorch's current stream, and
+// reads the returned cudaError_t.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +76,9 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNarrowMaxF = 4;           // widest row of the narrow mode
+constexpr int kNarrowEdgesPerLane = 8;
+constexpr int kNarrowRange = kWarp * kNarrowEdgesPerLane;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -75,45 +102,232 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-// Sum of (w ? w[e] : 1) * x[idx ? idx[e] : e, :] over edges [start, end)
-// whose row index lies in [lo, hi) (the others add 0), written to `out_row`
-// in T, or added in f32 to `acc_row` with atomics.  `round_w` rounds each
-// weight to T first.
-//
+__device__ __forceinline__ int lane_id() { return threadIdx.x & (kWarp - 1); }
+
+// What every mode reads.  R: edges a chunk (S in the wide mode); part: f32
+// piece slots, [2, n_ranges, F]: at [0, k] the first piece of the split row
+// that starts in chunk k, at [1, k] chunk k's piece of a row that started
+// in an earlier chunk; counters: int32 [n_ranges], zero before and after a
+// launch.
+struct Csr {
+  const int32_t* idx;
+  const float* w;
+  const int32_t* row_ptr;
+  const int32_t* win_base;
+  int window, block_rows, n_x;
+  float* part;
+  int32_t* counters;
+  int num_rows, F, R, n_ranges;
+};
+
+// The row of x that edge e gathers (-1: none) and its weight, rounded to
+// T.  Windowed mode: a sender outside [win.x, win.y) adds nothing.
+template <typename T>
+__device__ __forceinline__ void edge_src(const Csr& c, int e, int2 win,
+                                         int& src, float& wt) {
+  int s = c.idx != nullptr ? c.idx[e] : e;
+  float v = c.w != nullptr ? to_float(from_float<T>(c.w[e])) : 1.f;
+  if (c.win_base != nullptr) {
+    if (s < win.x || s >= win.y) {
+      s = -1;
+      v = 0.f;
+    }
+  } else {
+    s = min(max(s, 0), c.n_x - 1);
+  }
+  src = s;
+  wt = v;
+}
+
+// [lo, hi) of the row indices that `row` may gather: all of them, or in the
+// windowed mode its block's window, cut at x's last row.
+__device__ __forceinline__ int2 row_window(const Csr& c, int row) {
+  if (c.win_base == nullptr) return make_int2(INT_MIN, INT_MAX);
+  const int lo = c.win_base[row / c.block_rows];
+  return make_int2(lo, min(lo + c.window, c.n_x));
+}
+
+// Smallest r in [lo, hi] with rp[r] > v, given rp[hi] > v: a 32-way
+// search by the whole warp (each round one load a lane and a ballot; ~4
+// rounds for 65,536 rows).
+__device__ __forceinline__ int first_above(const int32_t* __restrict__ rp,
+                                           int lo, int hi, int v) {
+  const int lane = lane_id();
+  while (lo < hi) {
+    const int q =
+        lo + static_cast<int>((static_cast<long long>(hi - lo) * lane) >> 5);
+    const unsigned below = __ballot_sync(kFull, rp[q] <= v);
+    if (below == 0) return lo;
+    const int j = 31 - __clz(below);  // last probe at or below v
+    const int qj = __shfl_sync(kFull, q, j);
+    const int qn = __shfl_sync(kFull, q, (j + 1) & (kWarp - 1));
+    lo = qj + 1;
+    if (j < kWarp - 1) hi = qn;
+  }
+  return lo;
+}
+
+// Count this warp's piece of a split row on the row's counter (after its
+// slot stores); true, on every lane, for the last of `expected` arrivals,
+// which then resets the counter and may read every piece.
+__device__ __forceinline__ bool arrive(int32_t* counter, int expected) {
+  __threadfence();
+  __syncwarp();
+  int prev = 0;
+  if (lane_id() == 0) prev = atomicAdd(counter, 1);
+  prev = __shfl_sync(kFull, prev, 0);
+  if (prev != expected - 1) return false;
+  if (lane_id() == 0) *counter = 0;
+  __threadfence();
+  return true;
+}
+
+// Columns [4q, 4q + CW) of piece j of the split row starting in chunk kf:
+// slot [0, kf] for j = 0, else slot [1, kf + j] (read through L2: other
+// SMs wrote them).
+template <int CW>
+__device__ __forceinline__ Pack<float, CW> piece(const Csr& c, int kf, int j,
+                                                 int q) {
+  const size_t slot = j == 0 ? kf : static_cast<size_t>(c.n_ranges) + kf + j;
+  const float* at = c.part + slot * c.F + static_cast<size_t>(q) * CW;
+  Pack<float, CW> v;
+  if constexpr (CW == 4) {
+    const float4 f = __ldcg(reinterpret_cast<const float4*>(at));
+    v.v[0] = f.x;
+    v.v[1] = f.y;
+    v.v[2] = f.z;
+    v.v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < CW; ++k) v.v[k] = __ldcg(at + k);
+  }
+  return v;
+}
+
+// The split row that starts in chunk kf and ends in chunk kl: the sum of
+// its pieces (slot [0, kf], then slots [1, kf + 1 .. kl]) written to
+// out_row.  Lanes split into column lanes (CW columns each) and piece
+// groups; each group adds its pieces in chunk order, 8 loads in flight,
+// and the groups meet by a fixed shuffle tree.
+template <typename T, int CW>
+__device__ void finish_cols(const Csr& c, int kf, int kl, T* __restrict__ out_row) {
+  const int lane = lane_id();
+  const int quads = c.F / CW;
+  int gc = 1;
+  while (gc < quads && gc < kWarp) gc <<= 1;
+  const int groups = kWarp / gc;
+  const int grp = lane / gc, sub = lane - grp * gc;
+  const int n = kl - kf + 1;
+  for (int q0 = 0; q0 < quads; q0 += gc) {
+    const int q = q0 + sub;
+    float a[CW];
+#pragma unroll
+    for (int k = 0; k < CW; ++k) a[k] = 0.f;
+    if (q < quads) {
+      int j = grp;
+      for (; j + 7 * groups < n; j += 8 * groups) {
+        Pack<float, CW> v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = piece<CW>(c, kf, j + u * groups, q);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+#pragma unroll
+          for (int k = 0; k < CW; ++k) a[k] += v[u].v[k];
+      }
+      for (; j < n; j += groups) {
+        const Pack<float, CW> v = piece<CW>(c, kf, j, q);
+#pragma unroll
+        for (int k = 0; k < CW; ++k) a[k] += v.v[k];
+      }
+    }
+    for (int off = gc; off < kWarp; off <<= 1)
+#pragma unroll
+      for (int k = 0; k < CW; ++k) a[k] += __shfl_xor_sync(kFull, a[k], off);
+    if (grp == 0 && q < quads)
+#pragma unroll
+      for (int k = 0; k < CW; ++k) out_row[q * CW + k] = from_float<T>(a[k]);
+  }
+}
+
+template <typename T>
+__device__ void finish_row(const Csr& c, int kf, int kl, T* __restrict__ out_row) {
+  if (c.F % 4 == 0)
+    finish_cols<T, 4>(c, kf, kl, out_row);
+  else
+    finish_cols<T, 1>(c, kf, kl, out_row);
+}
+
+// Rows [k*per, (k+1)*per) that have no edges, zeroed (every row of out is
+// written once: rows with edges by their chunks' warps).  Narrow mode.
+template <typename T>
+__device__ void zero_empty_rows(T* __restrict__ out, const Csr& c, int k) {
+  const int lane = lane_id();
+  const int per = (c.num_rows + c.n_ranges - 1) / c.n_ranges;
+  const long long first = static_cast<long long>(k) * per;
+  if (first >= c.num_rows) return;
+  const int r0 = static_cast<int>(first);
+  const int r1 = min(r0 + per, c.num_rows);
+  for (int base = r0; base < r1; base += kWarp) {
+    const int r = base + lane;
+    const bool empty = r < r1 && c.row_ptr[r] == c.row_ptr[r + 1];
+    unsigned m = __ballot_sync(kFull, empty);
+    if (c.F < kWarp) {
+      if (empty)
+        for (int j = 0; j < c.F; ++j)
+          out[static_cast<size_t>(r) * c.F + j] = from_float<T>(0.f);
+    } else {
+      while (m != 0) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1;
+        T* row = out + static_cast<size_t>(base + j) * c.F;
+        for (int col = lane; col < c.F; col += kWarp) row[col] = from_float<T>(0.f);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wide rows
+// ---------------------------------------------------------------------------
+
+// Sum of w_e * x[src_e] over edges [start, end) of one row, in f32: written
+// to `out_row` in T, or to the f32 piece slot `slot` with plain stores.
+// REUSE (the pieces of long rows): a lane keeps the last row of x it
+// loaded and loads again only for another row, so a long row that gathers
+// one row many times (the collator's padding: sender 0, weight 0) reads it
+// once a lane; the products and their order are the same.  Rows of at
+// most S edges skip the comparison.
 // The warp splits into kWarp / G lane groups of G lanes; group g takes
 // edges g, g + groups, ... of each 32-edge batch, lane `sub` of a group owns
 // columns [c * VEC, (c + 1) * VEC) of the current G * VEC-wide column tile,
 // and the groups meet by shuffles.  All loop bounds are uniform across the
 // warp, so every shuffle runs with the full mask.
-template <typename T, int VEC>
-__device__ __forceinline__ void slice_sum(
-    const T* __restrict__ x, const int32_t* __restrict__ idx,
-    const float* __restrict__ w, int start, int end, int F, int G, int lo,
-    int hi, bool round_w, T* __restrict__ out_row, float* __restrict__ acc_row) {
-  const int lane = threadIdx.x & (kWarp - 1);
+template <typename T, int VEC, bool REUSE>
+__device__ __forceinline__ void slice_sum(const T* __restrict__ x,
+                                          const Csr& c, int start, int end,
+                                          int G, int2 win,
+                                          T* __restrict__ out_row,
+                                          float* __restrict__ slot) {
+  const int lane = lane_id();
   const int groups = kWarp / G;
   const int grp = lane / G;
   const int sub = lane - grp * G;
+  const int F = c.F;
   const int chunks = F / VEC;
   for (int c0 = 0; c0 < chunks; c0 += G) {
-    const int c = c0 + sub;
-    const bool col_ok = c < chunks;
+    const int col = c0 + sub;
+    const bool col_ok = col < chunks;
     float acc[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
 
+    int last = -1;  // the row of x held in `p`
+    Pack<T, VEC> p;
     for (int base = start; base < end; base += kWarp) {
       const int e = base + lane;
-      int my_src = -1;  // -1: no edge, or a row outside [lo, hi)
+      int my_src = -1;
       float my_w = 0.f;
-      if (e < end) {
-        const int src = idx != nullptr ? idx[e] : e;
-        if (src >= lo && src < hi) {
-          my_src = src;
-          my_w = w != nullptr ? w[e] : 1.f;
-          if (round_w) my_w = to_float(from_float<T>(my_w));
-        }
-      }
+      if (e < end) edge_src<T>(c, e, win, my_src, my_w);
       const int n = min(kWarp, end - base);
 #pragma unroll 4
       for (int j0 = 0; j0 < n; j0 += groups) {
@@ -121,8 +335,11 @@ __device__ __forceinline__ void slice_sum(
         const int src = __shfl_sync(kFull, my_src, j & (kWarp - 1));
         const float we = __shfl_sync(kFull, my_w, j & (kWarp - 1));
         if (j < n && col_ok && src >= 0) {
-          const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(
-              x + static_cast<size_t>(src) * F + static_cast<size_t>(c) * VEC);
+          if (!REUSE || src != last) {
+            p = *reinterpret_cast<const Pack<T, VEC>*>(
+                x + static_cast<size_t>(src) * F + static_cast<size_t>(col) * VEC);
+            last = src;
+          }
 #pragma unroll
           for (int k = 0; k < VEC; ++k) acc[k] = fmaf(we, to_float(p.v[k]), acc[k]);
         }
@@ -134,100 +351,227 @@ __device__ __forceinline__ void slice_sum(
       for (int k = 0; k < VEC; ++k) acc[k] += __shfl_xor_sync(kFull, acc[k], off);
     }
     if (grp == 0 && col_ok) {
-      if (acc_row == nullptr) {
+      if (slot == nullptr) {
         Pack<T, VEC> p;
 #pragma unroll
         for (int k = 0; k < VEC; ++k) p.v[k] = from_float<T>(acc[k]);
-        *reinterpret_cast<Pack<T, VEC>*>(out_row + static_cast<size_t>(c) * VEC) = p;
+        *reinterpret_cast<Pack<T, VEC>*>(out_row + static_cast<size_t>(col) * VEC) = p;
       } else {
+        Pack<float, VEC> p;
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) atomicAdd(acc_row + c * VEC + k, acc[k]);
+        for (int k = 0; k < VEC; ++k) p.v[k] = acc[k];
+        *reinterpret_cast<Pack<float, VEC>*>(slot + static_cast<size_t>(col) * VEC) = p;
       }
     }
   }
 }
 
-// [lo, hi) of the row indices that `row` may gather: all of them, or in the
-// windowed mode its block's window, cut at x's last row.
-__device__ __forceinline__ int2 row_window(const int32_t* __restrict__ win_base,
-                                           int window, int block_rows, int n_x,
-                                           int row) {
-  if (win_base == nullptr) return make_int2(INT_MIN, INT_MAX);
-  const int lo = win_base[row / block_rows];
-  return make_int2(lo, min(lo + window, n_x));
-}
-
-// Work split: warp r < num_rows is row r's primary and sums its first S
-// edges; warp num_rows + k is the tail warp of edge chunk k = [k*S, (k+1)*S)
-// and sums the edges of that chunk that lie more than S past the start of
-// their row.  A chunk holds the tail of at most one row (any row starting
-// inside it keeps its first S edges for its primary), so no row walks more
-// than S edges in one warp, whatever its length: the zero-weight padding
-// edges at the head of row 0 are one such long row.
-//
-// A row of at most S edges is written by its primary.  For a longer row
-// the primary and every tail warp add their f32 partial sums into the
-// row's slot of `acc` (at the row's first tail chunk) with atomics, count
-// themselves on the row's counter, and the last to arrive converts the
-// slot into the row of `out`.  The order of those f32 additions varies
-// from run to run.
-//
-// The windowed mode (win_base != null) narrows each row's valid senders to
-// its block's window and rounds the weights; nothing else changes.
+// Warps [0, n_ranges) are the tail warps of the S-edge chunks [base + k*S,
+// + S), and warp n_ranges + r is row r's: the long-row work comes first in
+// the grid.  Row r's warp sums the whole row when it has at most S edges
+// (an empty row gets zeros), else its first S edges; tail warp k sums the
+// edges of its chunk that lie more than S past the start of their row.  A
+// chunk holds the tail of at most one row (a row starting inside it keeps
+// its first S edges for its own warp), and at most one row longer than S
+// starts in each chunk, so a long row starting in chunk kf owns slot
+// [0, kf] for its head and its tails sit in slots [1, kf + 1 .. kl]: the
+// warps store their pieces there and the last to arrive adds them in
+// chunk order.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-    csr_spmm_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
-                    const float* __restrict__ w,
-                    const int32_t* __restrict__ row_ptr,
-                    const int32_t* __restrict__ win_base, int window,
-                    int block_rows, int n_x,
-                    float* __restrict__ acc, int32_t* __restrict__ counters,
-                    T* __restrict__ out, int num_rows, int F, int G, int S) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
-  const bool banded = win_base != nullptr;
-  int row, start, end;
-  if (warp < num_rows) {
-    row = warp;
-    start = row_ptr[row];
-    end = row_ptr[row + 1];
-    if (end - start <= S) {
-      const int2 win = row_window(win_base, window, block_rows, n_x, row);
-      slice_sum<T, VEC>(x, idx, w, start, end, F, G, win.x, win.y, banded,
-                        out + static_cast<size_t>(row) * F, nullptr);
+    csr_wide_kernel(const T* __restrict__ x, T* __restrict__ out, Csr c,
+                    int G) {
+  const int w = blockIdx.x * kWarpsPerBlock + static_cast<int>(threadIdx.x) / kWarp;
+  const int32_t* rp = c.row_ptr;
+  const int base = rp[0], S = c.R;
+  int row, rs, re, start, end;
+  float* slot;
+  if (w < c.n_ranges) {
+    const int p = base + w * S;
+    if (p >= rp[c.num_rows]) return;
+    row = first_above(rp, 0, c.num_rows, p) - 1;
+    rs = rp[row];
+    re = rp[row + 1];
+    start = max(p, rs + S);
+    end = min(p + S, re);
+    if (start >= end) return;  // no tail edges in this chunk
+    slot = c.part + static_cast<size_t>(c.n_ranges + w) * c.F;
+  } else {
+    row = w - c.n_ranges;
+    if (row >= c.num_rows) return;
+    rs = rp[row];
+    re = rp[row + 1];
+    if (re - rs <= S) {
+      slice_sum<T, VEC, false>(x, c, rs, re, G, row_window(c, row),
+                        out + static_cast<size_t>(row) * c.F, nullptr);
       return;
     }
-    end = start + S;
-  } else {
-    const int p = (warp - num_rows) * S;
-    if (p >= row_ptr[num_rows]) return;
-    int lo = 0, hi = num_rows - 1;  // the row holding edge p
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (row_ptr[mid] <= p) lo = mid; else hi = mid - 1;
-    }
-    row = lo;
-    start = max(p, row_ptr[row] + S);
-    end = min(p + S, row_ptr[row + 1]);
-    if (start >= end) return;  // no tail edges in this chunk
+    start = rs;
+    end = rs + S;
+    slot = c.part + static_cast<size_t>((rs - base) / S) * c.F;
   }
-  const int rs = row_ptr[row], re = row_ptr[row + 1];
-  const int k_first = (rs + S) / S, k_last = (re - 1) / S;
-  float* acc_row = acc + static_cast<size_t>(k_first) * F;
-  const int2 win = row_window(win_base, window, block_rows, n_x, row);
-  slice_sum<T, VEC>(x, idx, w, start, end, F, G, win.x, win.y, banded,
-                    nullptr, acc_row);
+  slice_sum<T, VEC, true>(x, c, start, end, G, row_window(c, row), nullptr, slot);
+  const int kf = (rs - base) / S, kl = (re - 1 - base) / S;
+  if (arrive(c.counters + kf, kl - kf + 1))
+    finish_row<T>(c, kf, kl, out + static_cast<size_t>(row) * c.F);
+}
 
-  __threadfence();
-  __syncwarp();
-  int prev = 0;
-  if (lane == 0) prev = atomicAdd(counters + k_first, 1);
-  prev = __shfl_sync(kFull, prev, 0);
-  if (prev != k_last - k_first + 1) return;  // not the last of 1 + tails
-  __threadfence();
-  T* out_row = out + static_cast<size_t>(row) * F;
-  for (int col = lane; col < F; col += kWarp)
-    out_row[col] = from_float<T>(__ldcg(acc_row + col));
+// ---------------------------------------------------------------------------
+// narrow rows
+// ---------------------------------------------------------------------------
+
+// Per lane: last r in [lo, hi] with rp[r] <= v (rp[lo] <= v given).
+__device__ __forceinline__ int last_at_or_below(const int32_t* __restrict__ rp,
+                                                int lo, int hi, int v) {
+  while (lo < hi) {
+    const int m = (lo + hi + 1) >> 1;
+    if (rp[m] <= v) lo = m; else hi = m - 1;
+  }
+  return lo;
+}
+
+// Warp k: zero its share of the empty rows, then sum edges [p0, p1) = [base
+// + k*kNarrowRange, + kNarrowRange), lane l owning kNarrowEdgesPerLane
+// consecutive ones.  A lane writes the rows that start and end among its
+// edges; the sums still open at each lane's end are scanned across lanes
+// by row, which finishes rows that cross lanes inside the range; the
+// pieces of the rows that cross p0 or p1 go to their slots, as in the
+// wide mode.
+template <typename T, int NF>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+    csr_narrow_kernel(const T* __restrict__ x, T* __restrict__ out, Csr c) {
+  constexpr int L = kNarrowEdgesPerLane;
+  const int lane = lane_id();
+  const int k = blockIdx.x * kWarpsPerBlock + static_cast<int>(threadIdx.x) / kWarp;
+  if (k >= c.n_ranges) return;
+  zero_empty_rows<T>(out, c, k);
+  const int32_t* rp = c.row_ptr;
+  const int base = rp[0], e_end = rp[c.num_rows];
+  const int p0 = base + k * kNarrowRange;
+  if (p0 >= e_end) return;
+  const int p1 = min(p0 + kNarrowRange, e_end);
+  const int r_first = first_above(rp, 0, c.num_rows, p0) - 1;
+  const int r_hi = c.num_rows - 1;
+  const int rp_first = rp[r_first];
+  const bool in_row = rp_first < p0;  // row r_first started in an earlier range
+
+  const int lo = min(p0 + lane * L, p1), hi = min(lo + L, p1);
+  const bool has = lo < hi;
+  // my first row (the last to start at or before lo), counted among the
+  // 32 row starts from r_first (one load a lane); searched past them
+  const int wv = r_first + lane <= c.num_rows ? rp[r_first + lane] : INT_MAX;
+  int starts = 0;
+  for (int j = 0; j < kWarp; ++j) starts += __shfl_sync(kFull, wv, j) <= lo;
+  int r = starts < kWarp ? r_first + starts - 1
+                         : last_at_or_below(rp, r_first + kWarp - 1, r_hi, lo);
+  if (!has) r = r_first;
+  int r_end = has ? rp[r + 1] : 0;
+  bool own = has && rp[r] >= lo;  // the current row starts among my edges
+
+  int src[L];
+  float wt[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    src[j] = 0;
+    wt[j] = 0.f;
+    if (lo + j < hi) edge_src<T>(c, lo + j, make_int2(INT_MIN, INT_MAX), src[j], wt[j]);
+  }
+  float v[L][NF];
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      v[j][f] = lo + j < hi ? to_float(x[static_cast<size_t>(src[j]) * NF + f]) : 0.f;
+
+  float acc[NF], head[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f] = head[f] = 0.f;
+  int head_row = -1;  // a row that started before my edges and ends among them
+  bool open = has;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int e = lo + j;
+    if (e < hi) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) acc[f] = fmaf(wt[j], v[j][f], acc[f]);
+      if (e + 1 == r_end) {
+        if (own) {
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+            out[static_cast<size_t>(r) * NF + f] = from_float<T>(acc[f]);
+        } else {
+          head_row = r;
+#pragma unroll
+          for (int f = 0; f < NF; ++f) head[f] = acc[f];
+        }
+#pragma unroll
+        for (int f = 0; f < NF; ++f) acc[f] = 0.f;
+        open = false;
+        if (e + 1 < hi) {  // the next row with edges starts at e + 1
+          r = rp[r + 2] > e + 1 ? r + 1 : last_at_or_below(rp, r + 2, r_hi, e + 1);
+          r_end = rp[r + 1];
+          own = true;
+          open = true;
+        }
+      }
+    }
+  }
+
+  // segmented inclusive scan of the open sums, keyed by row
+  int key = open ? r : -1;
+  float s[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) s[f] = acc[f];
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int k2 = __shfl_up_sync(kFull, key, off);
+    float t[NF];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) t[f] = __shfl_up_sync(kFull, s[f], off);
+    if (lane >= off && key >= 0 && k2 == key) {
+#pragma unroll
+      for (int f = 0; f < NF; ++f) s[f] = t[f] + s[f];
+    }
+  }
+  int in_key = __shfl_up_sync(kFull, key, 1);
+  float in_s[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) in_s[f] = __shfl_up_sync(kFull, s[f], 1);
+  if (lane == 0) in_key = -1;
+
+  // a row that started among earlier lanes of this range and ends here
+  if (head_row >= 0 && !(in_row && head_row == r_first)) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      out[static_cast<size_t>(head_row) * NF + f] = from_float<T>(
+          (in_key == head_row ? in_s[f] : 0.f) + head[f]);
+  }
+
+  const int last = (p1 - 1 - p0) / L;  // last lane with edges
+  if (in_row) {  // this range's piece of row r_first
+    const unsigned m = __ballot_sync(kFull, head_row == r_first);
+    const int from = m != 0 ? __ffs(m) - 1 : last;
+    if (lane == from) {
+      float* slot = c.part + static_cast<size_t>(c.n_ranges + k) * NF;
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        slot[f] = m != 0 ? (in_key == r_first ? in_s[f] : 0.f) + head[f] : s[f];
+    }
+    const int kf = (rp_first - base) / kNarrowRange;
+    const int kl = (rp[r_first + 1] - 1 - base) / kNarrowRange;
+    if (arrive(c.counters + kf, kl - kf + 1))
+      finish_row<T>(c, kf, kl, out + static_cast<size_t>(r_first) * NF);
+  }
+  const int co = __shfl_sync(kFull, key, last);  // open at p1
+  if (co >= 0 && !(in_row && co == r_first)) {  // the piece of a row owned here
+    if (lane == last) {
+      float* slot = c.part + static_cast<size_t>(k) * NF;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) slot[f] = s[f];
+    }
+    const int kl = (rp[co + 1] - 1 - base) / kNarrowRange;
+    if (arrive(c.counters + k, kl - k + 1))
+      finish_row<T>(c, k, kl, out + static_cast<size_t>(co) * NF);
+  }
 }
 
 // The windowed mode's window starts, as banded_sorted_spmm_pallas computes
@@ -273,49 +617,50 @@ int pick_vec(const void* x, const void* out, int F) {
   return 1;
 }
 
-struct Args {
-  const void* x;
-  const void* idx;
-  const void* w;
-  const void* row_ptr;
-  const void* win_base;
-  int window, block_rows, n_x;
-  void* acc;
-  void* counters;
-  void* out;
-  int num_rows, F, S, n_chunks;
-  cudaStream_t stream;
-};
+bool narrow_mode(int F, bool windowed) { return F <= kNarrowMaxF && !windowed; }
+
+int edges_per_range(int F, bool windowed, int S) {
+  return narrow_mode(F, windowed) ? kNarrowRange : S;
+}
+
+int ranges_for(int n_edges, int F, bool windowed, int S) {
+  return n_edges / edges_per_range(F, windowed, S) + 1;
+}
+
+int blocks_for(int n_ranges) {
+  return (n_ranges + kWarpsPerBlock - 1) / kWarpsPerBlock;
+}
 
 template <typename T, int VEC>
-void launch(const Args& a) {
-  const int chunks = a.F / VEC;
+void launch_wide(const void* x, void* out, const Csr& c, cudaStream_t stream) {
+  const int chunks = c.F / VEC;
   int G = 1;
   while (G < chunks && G < kWarp) G *= 2;
-  const long long warps = static_cast<long long>(a.num_rows) + a.n_chunks;
+  const long long warps = static_cast<long long>(c.n_ranges) + c.num_rows;
   const int blocks = static_cast<int>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  csr_spmm_kernel<T, VEC><<<blocks, kWarp * kWarpsPerBlock, 0, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const int32_t*>(a.idx),
-      static_cast<const float*>(a.w), static_cast<const int32_t*>(a.row_ptr),
-      static_cast<const int32_t*>(a.win_base), a.window, a.block_rows, a.n_x,
-      static_cast<float*>(a.acc), static_cast<int32_t*>(a.counters),
-      static_cast<T*>(a.out), a.num_rows, a.F, G, a.S);
+  csr_wide_kernel<T, VEC><<<blocks, kWarp * kWarpsPerBlock, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), c, G);
 }
 
 template <typename T>
-void dispatch(const Args& a) {
-  switch (pick_vec<T>(a.x, a.out, a.F)) {
-    case 8:
-      launch<T, 8>(a);
-      break;
-    case 4:
-      launch<T, 4>(a);
-      break;
-    case 2:
-      launch<T, 2>(a);
-      break;
-    default:
-      launch<T, 1>(a);
+void dispatch(const void* x, void* out, const Csr& c, cudaStream_t stream) {
+  const dim3 grid(blocks_for(c.n_ranges)), block(kWarp * kWarpsPerBlock);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (narrow_mode(c.F, c.win_base != nullptr)) {
+    switch (c.F) {
+      case 1: csr_narrow_kernel<T, 1><<<grid, block, 0, stream>>>(xt, ot, c); break;
+      case 2: csr_narrow_kernel<T, 2><<<grid, block, 0, stream>>>(xt, ot, c); break;
+      case 3: csr_narrow_kernel<T, 3><<<grid, block, 0, stream>>>(xt, ot, c); break;
+      default: csr_narrow_kernel<T, 4><<<grid, block, 0, stream>>>(xt, ot, c); break;
+    }
+    return;
+  }
+  switch (pick_vec<T>(x, out, c.F)) {
+    case 8: launch_wide<T, 8>(x, out, c, stream); break;
+    case 4: launch_wide<T, 4>(x, out, c, stream); break;
+    case 2: launch_wide<T, 2>(x, out, c, stream); break;
+    default: launch_wide<T, 1>(x, out, c, stream);
   }
 }
 
@@ -323,38 +668,40 @@ void dispatch(const Args& a) {
 
 extern "C" {
 
+// Edge chunks of one call: part must hold 2 * chunks * F floats and
+// counters `chunks` int32 zeros.  S: the wide mode's most edges a warp.
+int tgp_csr_ranges(int n_edges, int F, int windowed, int S) {
+  return ranges_for(n_edges, F, windowed != 0, S);
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (x and out).  idx and w may be null.
 // win_base: null, or the windowed mode's int32 [num_rows / block_rows]
 // window starts, written here before the product (then idx and w are
 // required, num_rows is a multiple of block_rows, and n_x is x's rows).
-// n_edges: idx's length.  S: edges per warp; n_chunks = ceil(E / S) for
-// the E edges that row_ptr indexes.  acc: f32 [n_chunks, F] and counters: int32 [n_chunks], both
-// zeroed here on `stream` before the launch.
-// Returns the first CUDA error (0 = cudaSuccess).
+// n_edges: idx's length (x's rows without idx), at least row_ptr[num_rows].
+// part: f32 [2, n_ranges, F] scratch; counters: int32 [n_ranges], zero on
+// entry and left zero; n_ranges = tgp_csr_ranges(n_edges, F, win_base !=
+// null, S).  Returns the first CUDA error (0 = cudaSuccess).
 int tgp_csr_spmm(const void* x, const void* idx, const void* w,
                  const void* row_ptr, void* win_base, int window,
-                 int block_rows, int n_x, int n_edges, void* acc,
+                 int block_rows, int n_x, int n_edges, void* part,
                  void* counters, void* out, int num_rows, int F, int S,
-                 int n_chunks, int dtype, void* stream) {
-  if (num_rows <= 0 || F <= 0 || S <= 0 || n_chunks < 0)
+                 int n_ranges, int dtype, void* stream) {
+  const bool windowed = win_base != nullptr;
+  if (num_rows <= 0 || F <= 0 || S <= 0 || n_x <= 0 || n_edges < 0 ||
+      n_ranges != ranges_for(n_edges, F, windowed, S))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (win_base != nullptr &&
-      (idx == nullptr || w == nullptr || window <= 0 || block_rows <= 0 ||
-       num_rows % block_rows != 0))
+  if (windowed && (idx == nullptr || w == nullptr || window <= 0 ||
+                   block_rows <= 0 || num_rows % block_rows != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x, idx, w, row_ptr, win_base, window, block_rows, n_x, acc,
-               counters, out, num_rows, F, S, n_chunks,
-               static_cast<cudaStream_t>(stream)};
-  if (n_chunks > 0) {
-    const size_t n = static_cast<size_t>(n_chunks);
-    cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(float) * n * F, a.stream);
-    if (err == cudaSuccess)
-      err = cudaMemsetAsync(counters, 0, sizeof(int32_t) * n, a.stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (win_base != nullptr) {
-    band_base_kernel<<<num_rows / block_rows, kWarp * kWarpsPerBlock, 0,
-                       a.stream>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Csr c{static_cast<const int32_t*>(idx), static_cast<const float*>(w),
+              static_cast<const int32_t*>(row_ptr),
+              static_cast<const int32_t*>(win_base), window, block_rows, n_x,
+              static_cast<float*>(part), static_cast<int32_t*>(counters),
+              num_rows, F, edges_per_range(F, windowed, S), n_ranges};
+  if (windowed) {
+    band_base_kernel<<<num_rows / block_rows, kWarp * kWarpsPerBlock, 0, s>>>(
         static_cast<const int32_t*>(idx), static_cast<const int32_t*>(row_ptr),
         static_cast<int32_t*>(win_base), block_rows, n_edges,
         max(n_x, window), window);
@@ -362,9 +709,9 @@ int tgp_csr_spmm(const void* x, const void* idx, const void* w,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (dtype == 0) {
-    dispatch<float>(a);
+    dispatch<float>(x, out, c, s);
   } else if (dtype == 1) {
-    dispatch<__nv_bfloat16>(a);
+    dispatch<__nv_bfloat16>(x, out, c, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,7 +25,9 @@ its plain PyTorch version beside it.  Each replaces kernels of
   whose gradient is the JAX package's plain scatter.
 
 All accumulate in f32 and return ``x.dtype`` (f32 or bf16), take any width
-F (F = 1 included) and never write rows past ``num_rows``.
+F (F = 1 included), round each weight to ``x.dtype`` before its product
+(as the Pallas kernels' one-hot · w in the messages' dtype does) and never
+write rows past ``num_rows``.
 
 Bound on an H100: bytes.  Two flops per gathered element sit far below
 the card's flop/byte balance, so the least time is idx + w + row_ptr +
@@ -33,10 +35,16 @@ one read of x + one write of out over the memory rate; the E·F gathered
 elements come from L2 while x fits in its 50 MB.  The TPU kernels wrote
 the gathered ``[E, F]`` rows to device memory (or gathered from a VMEM
 window with one-hot matmuls) and summed them with one-hot matmuls; the
-CUDA kernel gathers each row straight into registers (a warp per row,
-16-byte vector loads), so those rows never exist.  Rows longer than
-``EDGES_PER_ITEM`` edges — the padding edges make row 0 one — are shared
-with one more warp per further chunk of that many edges.
+CUDA kernel gathers each row straight into registers, so those rows
+never exist.  A warp sums a row of at most ``EDGES_PER_ITEM`` edges;
+a longer row (the collator's padding makes row 0 one) is split into
+chunks of that many, summed by warps that come first in the grid.  Rows
+of F ≤ 4 take a narrow mode: each warp owns 256 consecutive edges, each
+lane 8, and a segmented scan joins rows across lanes.  A split row is
+finished from its chunks' partial sums in chunk order, without float
+atomics: two runs on the same inputs give the same bits.  The kernel's
+scratch (partial sums and self-resetting counters) is kept per stream,
+so a call allocates only its output.
 
 Dispatch is by where the tensors lie: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises — there is no
@@ -60,7 +68,8 @@ __all__ = ["spmm_csr", "spmm_csr_plain", "segment_sum_sorted",
            "sort_edges_csr", "build_row_ptr"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: most edges one warp sums: longer rows are split across warps
+#: most edges of one row that one warp sums in the kernel's wide mode
+#: (F > 4 or windowed): longer rows are split into chunks of this many
 EDGES_PER_ITEM = 256
 
 
@@ -118,8 +127,12 @@ def _csr_sum_plain(x, w, idx, row_ptr, num_rows, win=None):
         torch.arange(num_rows, device=x.device), rp[1:] - rp[:-1])
     edges = int(rp[0]) + torch.arange(rows.shape[0], device=x.device)
     src = edges if idx is None else idx[edges].to(torch.int64)
+    if win is None:  # JAX's gather clamps its indices
+        src = src.clamp(0, x.shape[0] - 1)
+    # each weight rounded to x's dtype before its product, as the Pallas
+    # kernels' one-hot · w in msgs' dtype does
     wt = (torch.ones(rows.shape[0], device=x.device) if w is None
-          else w[edges].to(torch.float32))
+          else w[edges].to(x.dtype).to(torch.float32))
     if win is not None:
         window, block_rows = win
         base = _band_window_base(idx, row_ptr, num_rows,
@@ -127,7 +140,7 @@ def _csr_sum_plain(x, w, idx, row_ptr, num_rows, win=None):
         lo = base.to(torch.int64)[rows // block_rows]
         keep = (src >= lo) & (src < torch.clamp(lo + window,
                                                 max=x.shape[0]))
-        wt = torch.where(keep, wt.to(x.dtype).to(torch.float32), 0.0)
+        wt = torch.where(keep, wt, 0.0)
         src = torch.where(keep, src, 0)
     msgs = x.index_select(0, src).to(torch.float32) * wt[:, None]
     out = torch.zeros(num_rows, x.shape[1], dtype=torch.float32,
@@ -186,6 +199,8 @@ def _lib():
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.tgp_csr_spmm.restype = ctypes.c_int
+    lib.tgp_csr_ranges.argtypes = [ctypes.c_int] * 4
+    lib.tgp_csr_ranges.restype = ctypes.c_int
     lib.tgp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tgp_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -200,6 +215,26 @@ def _check_vector(name, t, dtype, device, min_len=None):
     if min_len is not None and t.shape[0] < min_len:
         raise ValueError(f"{name} has {t.shape[0]} entries, needs "
                          f">= {min_len}")
+
+
+#: (device index, stream) -> (counters, piece slots): the kernel's
+#: scratch, kept per stream so that no memset runs per call (the kernel
+#: leaves its counters at zero)
+_WORKSPACE = {}
+
+
+def _workspace(dev, stream, n_ranges, F):
+    """Zeroed int32 counters for ``n_ranges`` edge chunks and f32 slots
+    for their ``2 · n_ranges · F`` piece sums, grown on demand."""
+    key = (dev.index, stream)
+    counters, part = _WORKSPACE.get(key, (None, None))
+    if counters is None or counters.numel() < n_ranges:
+        counters = torch.zeros(n_ranges, dtype=torch.int32, device=dev)
+    if part is None or part.numel() < 2 * n_ranges * F:
+        part = torch.empty(2 * n_ranges * F, dtype=torch.float32,
+                           device=dev)
+    _WORKSPACE[key] = counters, part
+    return counters, part
 
 
 def _launch_csr(x, idx, w, row_ptr, num_rows, win=None):
@@ -226,26 +261,23 @@ def _launch_csr(x, idx, w, row_ptr, num_rows, win=None):
                 torch.empty(num_rows // block_rows, dtype=torch.int32,
                             device=dev))
     out = torch.empty(num_rows, F, dtype=x.dtype, device=dev)
-    if num_rows == 0 or F == 0:
-        return out, False
+    if num_rows == 0 or F == 0 or x.shape[0] == 0:
+        return out.zero_(), False
     S = EDGES_PER_ITEM
-    if n_edges + S >= 2 ** 31:
+    if n_edges + max(S, 256) >= 2 ** 31:
         raise ValueError(f"{n_edges} edges exceed the kernel's int32 "
                          "edge positions")
-    # per S-edge chunk: an f32 row that a split row's warps add into, and
-    # the row's arrival counter (both zeroed by the C side)
-    n_chunks = -(-n_edges // S)
-    acc = torch.empty(n_chunks * F, dtype=torch.float32, device=dev)
-    counters = torch.empty(n_chunks, dtype=torch.int32, device=dev)
     lib = _lib()
+    n_ranges = lib.tgp_csr_ranges(n_edges, F, win is not None, S)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        counters, part = _workspace(dev, stream, n_ranges, F)
         err = lib.tgp_csr_spmm(
             x.data_ptr(), None if idx is None else idx.data_ptr(),
             None if w is None else w.data_ptr(), row_ptr.data_ptr(),
             None if win_base is None else win_base.data_ptr(), window,
-            block_rows, x.shape[0], n_edges, acc.data_ptr(),
-            counters.data_ptr(), out.data_ptr(), num_rows, F, S, n_chunks,
+            block_rows, x.shape[0], n_edges, part.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), num_rows, F, S, n_ranges,
             _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError("segment_spmm kernel launch failed: "
@@ -292,10 +324,10 @@ class _SpmmCsr(torch.autograd.Function):
         g = g.contiguous()
         d_h = d_w = None
         if ctx.needs_input_grad[0]:
-            # d_h = Aᵀ g over the sender-sorted layout, w_t rounded to g's
-            # dtype first as the JAX backward does
-            d_h = _csr_sum(g, w_t.to(g.dtype).to(torch.float32),
-                           receivers_t.clamp(0, n - 1), row_ptr_t,
+            # d_h = Aᵀ g over the sender-sorted layout; the kernel rounds
+            # w_t to g's dtype and clamps receivers_t to g's rows, as the
+            # JAX backward's w_t.astype and clip do
+            d_h = _csr_sum(g, w_t, receivers_t, row_ptr_t,
                            ctx.h_shape[0], spmm_csr)
         if ctx.needs_input_grad[1]:
             # d_w = SDDMM ⟨h[s], g[r]⟩ in f32
