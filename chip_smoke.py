@@ -24,14 +24,19 @@ each of which raises on failure:
    or ``"generic"``), its bound fraction, its time with a warm L2, the
    ``"generic"`` route's time and, where an operand is f32, the library
    call with the cast inside it; then K3 on ragged shapes on either
-   route; K4, K5 and K6 on the round-3 banded graph of
-   ``scripts/exp_r3_banded.py`` (N = 65,536, E = 1,048,576, F = 128,
-   |s − r| ≤ 448, window 1152);
+   route; K4 as the sparse readout runs it (the served model's pooled
+   f32 rows of the first request, one segment; beside it
+   ``torch.segment_reduce`` and the ``index_add_`` it replaced); K4, K5
+   and K6 on the round-3 banded graph of ``scripts/exp_r3_banded.py`` (N
+   = 65,536, E = 1,048,576, F = 128, |s − r| ≤ 448, window 1152), K6 run
+   twice and required bit-equal;
 4. serving: ``Predictor`` over ``PoolingClassifier`` (GCN → top-k → GCN →
    sum readout → MLP head, hidden 128, bf16) on full-size requests (one
    graph each: 65,536 nodes, 1,000,000 random edges, 128 features), with
-   the kernels' launch counts, and the logits held against the same model
-   run on the CPU with the kernels' plain versions;
+   the kernels' launch counts (K1 3 times and the readout's K4 once a
+   request), the logits held against the same model run on the CPU with
+   the kernels' plain versions, and a repeated request required to give
+   the same logits bit for bit;
 5. dense training (``bench.py::bench_jax`` at full width: 64 graphs × 256
    nodes, ER p = 0.03, 128 features): ``DenseTopkClassifier`` (hidden 128,
    bf16, the batched-product kernel) takes 10 Adam steps; the kernel must
@@ -45,8 +50,8 @@ each of which raises on failure:
    graph, 65,536 nodes, 1,000,000 random edges, 128 features, collated
    with ``sort_edges=True``): the served model trains 20 Adam steps on
    label 1; the CSR SpMM kernel must launch 5 times a step (3 forward,
-   2 backward), and step one's loss and gradients are held against the
-   same model and graph on the CPU;
+   2 backward) and the readout's K4 once, and step one's loss and
+   gradients are held against the same model and graph on the CPU;
 8. the locality path on the union of the dense graphs (16,384 nodes):
    ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
    engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
@@ -475,9 +480,56 @@ def phase_kernels_banded():
         rel_tol=REL_TOL, bound_bytes=4 * 3 * E + 4 * 2 * N * F,
         flops=2 * E * F, peak=FP32_FLOPS_PER_S,
         scale=SD.banded_sddmm_plain(x.abs(), b.abs(), s, r, window=window),
-        flush=flush, note="torch.sparse.sampled_addmm (cuSPARSE SDDMM)")
+        flush=flush, note="torch.sparse.sampled_addmm (cuSPARSE SDDMM)",
+        gather_bytes=4 * 2 * E * F, twice=True)
     del flush
     return modes
+
+
+def phase_kernels_readout(batch):
+    """K4 as the sparse readout runs it: the served model's post-pool rows
+    ``h [N, 128]`` f32 on the first request (masked rows zeroed, as
+    ``global_reduce`` does), one segment over the graph's ascending
+    ``node_graph``; beside the library's ``torch.segment_reduce`` on the
+    same offsets, the ``index_add_`` that the readout ran before
+    (``index_add_ms``)."""
+    from torch.nn import functional as F_
+
+    from tgp_tpu_torch.ops.kernels import segment_spmm as K
+
+    model = build_model("cuda").eval()
+    with torch.inference_mode():
+        x = batch.x
+        for conv in model.pre_convs:
+            x = F_.relu(conv(batch, x))
+        g = model.pooler(batch.with_features(x)).graph
+        h = g.x
+        for conv in model.post_convs:
+            h = F_.relu(conv(g, h))
+    B, (N, F) = g.num_graphs, h.shape
+    msgs = torch.where(g.node_mask[:, None], h.float(), 0.0).contiguous()
+    ids = g.node_graph.long()
+    if B != 1 or bool((ids[1:] < ids[:-1]).any()):
+        raise AssertionError("the request's node_graph is not one ascending "
+                             "graph")
+    rp = torch.searchsorted(ids, torch.arange(B + 1, device="cuda"),
+                            out_int32=True)
+    rids, offsets = ids.to(torch.int32), rp.long()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    name = f"K4 readout F={F} float32 segments={B}"
+    row = check_mode(
+        name, lambda: K.sorted_segment_sum(msgs, rids, rp, B),
+        lambda: K.sorted_segment_sum_plain(msgs, rids, rp, B),
+        lambda: torch.segment_reduce(msgs, "sum", offsets=offsets),
+        rel_tol=REL_TOL, bound_bytes=4 * N * F + 4 * (B + 1) + 4 * B * F,
+        flops=N * F, peak=FP32_FLOPS_PER_S,
+        scale=K.sorted_segment_sum_plain(msgs.abs(), rids, rp, B),
+        flush=flush, note="torch.segment_reduce(sum, offsets)", twice=True,
+        extra={"rows": N, "index_add_ms": median_ms(
+            lambda: torch.zeros(B, F, device="cuda").index_add_(0, ids, msgs),
+            flush)})
+    del flush
+    return {name: row}
 
 
 def phase_kernels_k3(adj):
@@ -634,12 +686,19 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
         served.append(predictor([g]))
         req_ms.append(1e3 * (time.perf_counter() - t0))
     launches = read_counts()
-    if launches["spmm_csr"] != 3 * REQUESTS:
-        raise AssertionError(f"spmm_csr launched {launches['spmm_csr']} "
-                             f"times for {REQUESTS} requests, want 3 each")
+    want = dict.fromkeys(launches, 0)
+    want.update(spmm_csr=3 * REQUESTS, sorted_segment_sum=REQUESTS)
+    if launches != want:
+        raise AssertionError(f"{REQUESTS} requests launched {launches}, "
+                             f"want {want}")
     served = np.concatenate(served)
     if served.shape != (REQUESTS, CLASSES) or not np.isfinite(served).all():
         raise AssertionError(f"bad logits {served}")
+    # every sum of the path has a fixed order: the same request, the same bits
+    again = predictor([graphs[0]])
+    if not np.array_equal(again[0], served[0]):
+        raise AssertionError(f"two requests on one graph differ: {again[0]} "
+                             f"vs {served[0]}")
 
     fwd = []
     with torch.inference_mode():
@@ -672,7 +731,7 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
         collate_ms=collate_ms, forward_device_ms=statistics.median(fwd),
         forward_device_ms_all=fwd, launches=launches,
         logits_first=served[0].tolist(), cpu_logits_first=ref[0].tolist(),
-        max_abs_diff_vs_cpu=diff, tol=tol)
+        max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=True)
     print(f"[serving] {json.dumps(result)}", flush=True)
 
     if profile:
@@ -883,7 +942,12 @@ def _idle_profile(step, steps, med_ms, tag):
                   and not e.is_user_annotation) / 1e3
     print(events.table(sort_by="self_device_time_total", row_limit=30),
           flush=True)
+    # index_add_'s kernels (indexFuncSmallIndex / indexFuncLargeIndex)
+    index_add_ms = sum(e.self_device_time_total for e in events
+                       if e.device_type == DeviceType.CUDA
+                       and "indexfunc" in e.key.lower()) / 1e3
     row = dict(steps=steps, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+               index_add_device_ms=index_add_ms,
                busy_ms_per_step=busy_ms / steps,
                idle_share=1 - busy_ms / steps / med_ms)
     print(f"[{tag} profile] {json.dumps(row)}", flush=True)
@@ -922,12 +986,14 @@ def phase_train_sparse(card, profile: bool):
             model.state_dict().items()}
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     K1 = _wrappers()["spmm_csr"]
+    K4 = _wrappers()["sorted_segment_sum"]
 
-    # the main path, counted: SPARSE_STEPS steps, K1 five times a step
+    # the main path, counted: SPARSE_STEPS steps, K1 five times a step and
+    # K4 (the readout) once
     reset_counts()
-    step_ms, losses, per_step = [], [], []
+    step_ms, losses, per_step, k4_per_step = [], [], [], []
     for i in range(SPARSE_STEPS):
-        before = K1.launches
+        before, k4_before = K1.launches, K4.launches
         if i == 0:  # step one keeps its gradients for the CPU check
             def first():
                 out = _step_one_grads(model, batch, y)
@@ -943,11 +1009,14 @@ def phase_train_sparse(card, profile: bool):
         step_ms.append(ms)
         losses.append(float(loss))
         per_step.append(K1.launches - before)
+        k4_per_step.append(K4.launches - k4_before)
     launches = read_counts()
-    if per_step != [K1_PER_STEP] * SPARSE_STEPS:
-        raise AssertionError(f"K1 launches per step {per_step}, want "
-                             f"{K1_PER_STEP}")
-    if any(n for name, n in launches.items() if name != "spmm_csr"):
+    if (per_step != [K1_PER_STEP] * SPARSE_STEPS
+            or k4_per_step != [1] * SPARSE_STEPS):
+        raise AssertionError(f"K1 launches per step {per_step}, K4 "
+                             f"{k4_per_step}, want {K1_PER_STEP} and 1")
+    if any(n for name, n in launches.items()
+           if name not in ("spmm_csr", "sorted_segment_sum")):
         raise AssertionError(f"unexpected launches {launches}")
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite losses {losses}")
@@ -974,7 +1043,8 @@ def phase_train_sparse(card, profile: bool):
         step_ms=step_ms,
         step_ms_median=med, edges_per_s=n_edges / (med / 1e3),
         collate_ms=collate_ms, losses=losses, launches=launches,
-        k1_launches_per_step=per_step, step1_loss=loss0,
+        k1_launches_per_step=per_step, k4_launches_per_step=k4_per_step,
+        step1_loss=loss0,
         step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
         loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
         grad_rel_tol=GRAD_REL_TOL, cpu_check_s=cpu_s,
@@ -1112,6 +1182,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     collate_ms = 1e3 * (time.perf_counter() - t0)
     modes = phase_kernels(batch)
+    modes.update(phase_kernels_readout(batch))
 
     # the dense training slice's batch (bench.py::bench_jax): collated,
     # densified and normalized once, outside the steps
@@ -1151,8 +1222,8 @@ def main(argv=None) -> int:
         entry("bmm", K3_SOURCE, K3_REPLACES, train["launches"]["bmm"],
               k3_modes["fwd pre"]),
         entry("sorted_segment_sum", SOURCE, K4_REPLACES,
-              loc["sorted_segment_sum"],
-              modes[f"K4 sorted_segment_sum F={FEATURES} bfloat16"]),
+              sparse["launches"]["sorted_segment_sum"],
+              modes[f"K4 readout F={HIDDEN} float32 segments=1"]),
         entry("spmm_banded", SOURCE, K5_REPLACES, loc["spmm_banded"],
               next(m for k, m in band_modes.items() if k.startswith("K5"))),
         entry("sddmm_banded", K6_SOURCE, K6_REPLACES, loc["sddmm_banded"],
@@ -1161,7 +1232,9 @@ def main(argv=None) -> int:
           flush=True)
     print(f"K1 launches: serving {serving['launches']['spmm_csr']} for "
           f"{REQUESTS} requests, sparse training "
-          f"{sparse['launches']['spmm_csr']} for {SPARSE_STEPS} steps",
+          f"{sparse['launches']['spmm_csr']} for {SPARSE_STEPS} steps; K4 "
+          f"(readout): serving {serving['launches']['sorted_segment_sum']}, "
+          f"sparse training {sparse['launches']['sorted_segment_sum']}",
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

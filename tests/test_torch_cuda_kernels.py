@@ -596,3 +596,127 @@ def test_cuda_banded_sddmm_matches_plain(F, dtype):
     for x, y in zip(*grads.values()):
         torch.testing.assert_close(x.cpu().float(), y.float(), rtol=2e-2,
                                    atol=2e-2 * float(y.float().abs().max()))
+
+
+def _sddmm_case(case, F, seed=0):
+    """Edges for K6's cases, E not a multiple of the 512-edge chunk:
+    ``banded`` (receiver-sorted, |s − r| ≤ 120), ``hub`` (one receiver's
+    1,600 edges over four chunks), ``falling`` (every other chunk's
+    senders drop to the bottom rows, so window starts fall and rise),
+    ``unsorted`` (receivers and senders in random order), ``padding``
+    (padding ids ``Na``/``Nb``, a negative id, ids past their window) and
+    ``wide`` (a window wider than the block's rings, random ids)."""
+    rng = np.random.default_rng(seed)
+    na, nb, e, window = 3000, 2600, 7001, 512
+    r = np.sort(rng.integers(0, nb, e))
+    s = np.clip(r + rng.integers(-120, 121, e), 0, na - 1)
+    if case == "hub":
+        r[2000:3600] = 1234
+        s[2000:3600] = np.clip(1234 + rng.integers(-200, 200, 1600), 0,
+                               na - 1)
+    elif case == "falling":
+        for c in range(1, e // 512 + 1, 2):
+            s[c * 512:(c + 1) * 512] = rng.integers(0, 300, min(512, e -
+                                                                c * 512))
+    elif case == "unsorted":
+        r = rng.integers(0, nb, e)
+        s = rng.integers(0, na, e)
+    elif case == "padding":
+        s[rng.integers(0, e, 40)] = na
+        r[rng.integers(0, e, 40)] = nb
+        s[17], r[4000] = -3, nb - 1  # r[4000] far past its chunk's window
+    elif case == "wide":
+        na, nb, window = 5000, 5000, 4096
+        s, r = rng.integers(0, na, e), rng.integers(0, nb, e)
+    a = rng.normal(size=(na, F)).astype(np.float32)
+    b = rng.normal(size=(nb, F)).astype(np.float32)
+    return (a, b, s.astype(np.int32), r.astype(np.int32), window)
+
+
+SDDMM_CASES = ["banded", "hub", "falling", "unsorted", "padding", "wide"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 36, 128, 200])
+@pytest.mark.parametrize("case", SDDMM_CASES)
+def test_cuda_banded_sddmm_rings(case, F, dtype):
+    """The ring kernel (K6) against its plain version within 1e-5 of
+    Σ|terms| (the same f32 products, summed in another order), on inputs
+    that leave the banded shape: a hub receiver, falling window starts,
+    unsorted ids, padding ids, windows wider than the rings; 16-byte
+    copies where rows are aligned (F·size % 16 == 0), element copies
+    elsewhere; two runs equal bit for bit, one launch each."""
+    _skip_without_card()
+    a, b, s, r, window = _sddmm_case(case, F, seed=F)
+    tdt = getattr(torch, dtype)
+    at, bt = (torch.tensor(v, device="cuda").to(tdt) for v in (a, b))
+    st, rt = torch.tensor(s, device="cuda"), torch.tensor(r, device="cuda")
+    before = SD.banded_sddmm.launches
+    got = _twice_equal(lambda: SD.banded_sddmm(at, bt, st, rt,
+                                               window=window))
+    assert SD.banded_sddmm.launches == before + 2
+    ref = SD.banded_sddmm_plain(at, bt, st, rt, window=window)
+    scale = SD.banded_sddmm_plain(at.abs(), bt.abs(), st, rt, window=window)
+    _scaled(got, ref, scale, 1e-5)
+    assert torch.equal(got == 0, ref == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_banded_sddmm_unaligned_rows(dtype):
+    """Views one element off 16-byte alignment take the element-copy
+    path."""
+    _skip_without_card()
+    a, b, s, r, window = _sddmm_case("banded", 128, seed=3)
+    tdt = getattr(torch, dtype)
+
+    def skew(v):
+        t = torch.tensor(v, device="cuda").to(tdt)
+        return torch.empty(t.numel() + 1, dtype=tdt,
+                           device="cuda")[1:].view(t.shape).copy_(t)
+
+    at, bt = skew(a), skew(b)
+    st, rt = torch.tensor(s, device="cuda"), torch.tensor(r, device="cuda")
+    got = _twice_equal(lambda: SD.banded_sddmm(at, bt, st, rt,
+                                               window=window))
+    ref = SD.banded_sddmm_plain(at, bt, st, rt, window=window)
+    scale = SD.banded_sddmm_plain(at.abs(), bt.abs(), st, rt, window=window)
+    _scaled(got, ref, scale, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ascending", [True, False])
+@pytest.mark.parametrize("graphs", [1, 3, 64])
+def test_cuda_readout_takes_k4(graphs, ascending):
+    """The sparse sum readout on the card: one K4 launch, equal bit for bit
+    twice, within 1e-5 of Σ|terms| of the CPU's plain route, with masked
+    rows and padding nodes in the last graph; its gradient the gather
+    ``g[graph]`` on kept rows."""
+    from tgp_tpu_torch.reduce.global_reduce import global_reduce
+
+    _skip_without_card()
+    rng = np.random.default_rng(graphs)
+    n = 5000
+    ng = np.sort(rng.integers(0, graphs, n)).astype(np.int32)
+    ng[-100:] = graphs - 1
+    if not ascending:
+        ng = rng.permutation(ng)
+    nm = rng.random(n) > 0.2
+    x = rng.normal(size=(n, 128)).astype(np.float32)
+    args = dict(node_graph=torch.tensor(ng, device="cuda"),
+                num_graphs=graphs, node_mask=torch.tensor(nm, device="cuda"))
+    xt = torch.tensor(x, device="cuda", requires_grad=True)
+    before = K.sorted_segment_sum.launches
+    got = _twice_equal(lambda: global_reduce(xt, **args))
+    assert K.sorted_segment_sum.launches == before + 2
+    cpu = dict(node_graph=torch.tensor(ng), num_graphs=graphs,
+               node_mask=torch.tensor(nm))
+    ref = global_reduce(torch.tensor(x), **cpu)
+    scale = global_reduce(torch.tensor(np.abs(x)), **cpu)
+    _scaled(got, ref, scale, 1e-5)
+    g = torch.randn(graphs, 128, device="cuda")
+    got.backward(g)
+    keep = torch.tensor(nm, device="cuda")[:, None]
+    assert torch.equal(xt.grad, torch.where(
+        keep, g[torch.tensor(ng, device="cuda").long()], 0.0))

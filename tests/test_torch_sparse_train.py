@@ -316,7 +316,9 @@ def test_sparse_training_step_matches_jax(bf16):
 def test_sparse_training_step_runs_five_k1_passes(monkeypatch):
     """The pinned count: conv1's product, conv2's degree pass and product
     forward; the two products' ``d_h`` backward (no ``d_w``: the edge
-    weights take no gradient, and the degree pass none at all)."""
+    weights take no gradient, and the degree pass none at all).  Beside
+    them the sum readout runs K4 (``sorted_segment_sum``) once, forward
+    only: its gradient is a gather."""
     graphs = _sparse_graphs(22, n=300, deg=4)
     _, _, _, tm, tb = _model_pair(graphs, False)
     calls = []
@@ -331,5 +333,6 @@ def test_sparse_training_step_runs_five_k1_passes(monkeypatch):
     n_fwd = len(calls)
     torch.nn.functional.cross_entropy(
         logits, torch.tensor(LABELS).long()).backward()
-    assert n_fwd == 3
-    assert [c for c, _ in calls] == ["spmm_csr"] * 5
+    assert n_fwd == 4
+    assert [c for c, _ in calls] == (["spmm_csr"] * 3 + ["sorted_segment_sum"]
+                                     + ["spmm_csr"] * 2)

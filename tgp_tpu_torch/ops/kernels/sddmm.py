@@ -16,9 +16,11 @@ between ``a`` and ``b``.
 ``sddmm_banded``): the kernel forward, and the JAX package's plain
 scatters (no window, ids out of range masked) as the backward.
 
-Bound on an H100: bytes (see the source).  Dispatch is by where the
-tensors lie: CPU tensors take the plain version, CUDA tensors launch the
-kernel or raise.  Launches are counted in ``banded_sddmm.launches``.
+Bound on an H100: bytes (see the source).  The kernel finds the window
+starts itself, and a block keeps the rows of its run of chunks in two
+shared-memory rings that slide with the windows, so each row is read
+about once.  Dispatch is by where the tensors lie: CPU tensors take the
+plain version, CUDA tensors launch the kernel or raise.  Launches are counted in ``banded_sddmm.launches``.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ def _lib():
     from tgp_tpu_torch.ops.kernels._build import load
 
     lib = load("sddmm")
-    lib.tgp_sddmm.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+    lib.tgp_sddmm.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     lib.tgp_sddmm.restype = ctypes.c_int
     lib.tgp_sddmm_error_string.argtypes = [ctypes.c_int]
@@ -120,18 +122,13 @@ def _launch(a, b, senders, receivers, window):
         return out
     if a.shape[1] == 0:
         return out.zero_()
-    # the window starts, written by the kernel's first pass
-    n_chunks = -(-E // CHUNK_EDGES)
-    a_base = torch.empty(n_chunks, dtype=torch.int32, device=dev)
-    b_base = torch.empty(n_chunks, dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tgp_sddmm(a.data_ptr(), b.data_ptr(), senders.data_ptr(),
-                            receivers.data_ptr(), a_base.data_ptr(),
-                            b_base.data_ptr(), out.data_ptr(), E, a.shape[0],
-                            b.shape[0], a.shape[1], window, CHUNK_EDGES,
-                            _DTYPE_CODE[a.dtype], stream)
+                            receivers.data_ptr(), out.data_ptr(), E,
+                            a.shape[0], b.shape[0], a.shape[1], window,
+                            CHUNK_EDGES, _DTYPE_CODE[a.dtype], stream)
     if err != 0:
         raise RuntimeError("sddmm kernel launch failed: "
                            + lib.tgp_sddmm_error_string(err).decode())
