@@ -24,17 +24,30 @@ each of which raises on failure:
    or ``"generic"``), its bound fraction, its time with a warm L2, the
    ``"generic"`` route's time and, where an operand is f32, the library
    call with the cast inside it; then K3 on ragged shapes on either
-   route; K4 as the sparse readout runs it (the served model's pooled
-   f32 rows of the first request, one segment; beside it
-   ``torch.segment_reduce`` and the ``index_add_`` it replaced); K4, K5
-   and K6 on the round-3 banded graph of ``scripts/exp_r3_banded.py`` (N
-   = 65,536, E = 1,048,576, F = 128, |s − r| ≤ 448, window 1152), K6 run
-   twice and required bit-equal;
+   route; K4 as the sparse readout runs it (``gather_segment_sum``, the
+   rows read through their sort order, masked rows skipped), on the
+   route the shape rule picks: the served model's pooled f32 rows of the
+   first request (one segment of 65,536 rows, ``"long"``,
+   ``segment_reduce.cu``), the dense cell's 64 graphs as one sparse batch
+   (64 segments of 256 rows, ``"long"``), 512 graphs of 32 rows
+   (``"long"``) and 1,024 of 18 (``"wide"``, ``segment_spmm.cu``), each
+   beside
+   ``torch.segment_reduce``, the ``index_add_`` the readout once ran, the
+   call on each route (``long_ms``, ``old_ms`` for ``"wide"``) and the
+   unfused sum of the masked rows in sort order (``unfused_ms``,
+   required bit-equal); K4, K5 and K6 on the round-3 banded graph of
+   ``scripts/exp_r3_banded.py`` (N = 65,536, E = 1,048,576, F = 128,
+   |s − r| ≤ 448, window 1152): K4 on its ``"wide"`` route with the
+   ``"long"`` route's time beside it, K5's ring kernel
+   (``banded_spmm.cu``) with the unwindowed register gather of
+   ``segment_spmm.cu`` that its windowed mode ran before (``old_ms``),
+   every row run twice and required bit-equal;
 4. serving: ``Predictor`` over ``PoolingClassifier`` (GCN → top-k → GCN →
    sum readout → MLP head, hidden 128, bf16) on full-size requests (one
    graph each: 65,536 nodes, 1,000,000 random edges, 128 features), with
    the kernels' launch counts (K1 3 times and the readout's K4 once a
-   request), the logits held against the same model run on the CPU with
+   request, on its ``"long"`` route), the logits held against the same
+   model run on the CPU with
    the kernels' plain versions, and a repeated request required to give
    the same logits bit for bit;
 5. dense training (``bench.py::bench_jax`` at full width: 64 graphs × 256
@@ -50,16 +63,18 @@ each of which raises on failure:
    graph, 65,536 nodes, 1,000,000 random edges, 128 features, collated
    with ``sort_edges=True``): the served model trains 20 Adam steps on
    label 1; the CSR SpMM kernel must launch 5 times a step (3 forward,
-   2 backward) and the readout's K4 once, and step one's loss and
-   gradients are held against the same model and graph on the CPU;
+   2 backward) and the readout's K4 once (``"long"``), and step one's
+   loss and gradients are held against the same model and graph on the
+   CPU;
 8. the locality path on the union of the dense graphs (16,384 nodes):
    ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
    engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
    ``sddmm_banded`` (K6) on the same plan, each held against the plain
    product of the graph in its own order.
 
-The next-to-last line of output is a JSON object ``{"kernels": [...]}``;
-the last is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
+Every ``[kernels]`` row carries the card's ``nvidia-smi`` name and power
+limit.  The next-to-last line of output is a JSON object ``{"kernels":
+[...]}``; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the rest of the repository, it exits non-zero and prints no
 result.
 """
@@ -98,11 +113,16 @@ K3_REL_TOL = 1e-5  # of Σₖ|a||b|: same bf16 products, other f32 sum order
 # one bf16 rounding (2⁻⁷ of the value) where the output is bf16
 REL_TOL, BF16_ULP = 1e-5, 2.0 ** -7
 K4_REPLACES = "tgp_tpu/ops/pallas/segment_spmm.py:38"  # sorted_segment_sum_pallas
+K4_SOURCE = "tgp_tpu_torch/csrc/segment_reduce.cu"  # the readout's route
 K5_REPLACES = "tgp_tpu/ops/pallas/segment_spmm.py:387"  # _banded_kernel
+K5_SOURCE = "tgp_tpu_torch/csrc/banded_spmm.cu"
 K6_REPLACES = "tgp_tpu/ops/pallas/sddmm.py:49"  # _kernel / banded_sddmm_pallas
 K6_SOURCE = "tgp_tpu_torch/csrc/sddmm.cu"
 # the round-3 banded graph (scripts/exp_r3_banded.py:21,35-45, BW = 448)
 BAND_NODES, BAND_EDGES, BAND_BW = 65_536, 1_048_576, 448
+# readouts of many small graphs: batches of TU-benchmark-sized graphs
+# (graphs, nodes each): ENZYMES' mean of 32.6 nodes, MUTAG's of 17.9
+SMALL_BATCHES = ((512, 32), (1024, 18))
 # sparse training: bench.py::bench_jax_large (STEPS_LARGE steps, label 1)
 SPARSE_STEPS, K1_PER_STEP = 20, 5
 # step one of training, GPU against the CPU's plain versions (bf16):
@@ -163,8 +183,8 @@ def _wrappers():
 def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-    routes = _wrappers()["bmm"].launches_by_route
-    routes.update(dict.fromkeys(routes, 0))
+        routes = getattr(fn, "launches_by_route", {})
+        routes.update(dict.fromkeys(routes, 0))
 
 
 def read_counts() -> dict:
@@ -219,6 +239,11 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+#: the card's ``nvidia-smi`` name and power limit, set by main() and
+#: written into every [kernels] row
+CARD = None
 
 
 def median_ms(fn, flush: torch.Tensor | None) -> float:
@@ -294,7 +319,8 @@ def check_mode(name, kernel, plain, library, *, rel_tol, bound_bytes, flops,
                 f"{float((got.float() - again.float()).abs().max())})")
     bound_ms = 1e3 * max(bound_bytes / HBM_BYTES_PER_S, flops / peak)
     ms = median_ms(kernel, flush)
-    row = dict(mode=name, max_abs_err=max_abs, max_rel_err=worst,
+    row = dict(mode=name, card=CARD, max_abs_err=max_abs,
+               max_rel_err=worst,
                rel_tol=rel_tol, ms=ms, plain_ms=median_ms(plain, flush),
                bound_ms=bound_ms, bound_fraction=bound_ms / ms,
                bound_by=("bytes" if bound_bytes / HBM_BYTES_PER_S
@@ -420,9 +446,13 @@ def phase_kernels(batch):
 
 def phase_kernels_banded():
     """K4, K5 and K6 on the round-3 banded graph: K4 sums its gathered
-    bf16 messages, K5 gathers bf16 x through its 1152-row windows, K6 dots
-    f32 rows of two matrices (every 512-edge chunk's ids fit its window,
-    so every edge is computed)."""
+    bf16 messages (its ``"wide"`` route; ``long_ms`` the ``"long"``
+    route's time), K5 gathers bf16 x through its 1152-row windows (the
+    ring kernel; ``old_ms`` the register gather of ``segment_spmm.cu``
+    that its windowed mode ran, here on the same layout without the
+    window, which cuts no edge of this graph), K6 dots f32 rows of two
+    matrices (every 512-edge chunk's ids fit its window, so every edge is
+    computed)."""
     from tgp_tpu_torch.ops.kernels import sddmm as SD
     from tgp_tpu_torch.ops.kernels import segment_spmm as K
     from tgp_tpu_torch.ops.ordering import choose_banded_window
@@ -445,14 +475,23 @@ def phase_kernels_banded():
     a_k4 = csr(torch.arange(E, dtype=torch.int32, device="cuda"),
                torch.ones(E, dtype=bf16, device="cuda"), E)
     name = "K4 sorted_segment_sum F=128 bfloat16"
+    route = K.segment_route(N, E, F)
+    long_scale = K.sorted_segment_sum_plain(msgs.float().abs(), r, rp, N)
+    long_out = K._k4_sum(msgs, None, None, rp, N, "long")
+    torch.cuda.synchronize()
+    _worst(f"{name} long route", long_out,
+           K.sorted_segment_sum_plain(msgs, r, rp, N), long_scale, REL_TOL,
+           BF16_ULP)
     modes[name] = check_mode(
         name, lambda: K.sorted_segment_sum(msgs, r, rp, N),
         lambda: K.sorted_segment_sum_plain(msgs, r, rp, N),
         lambda: torch.sparse.mm(a_k4, msgs), rel_tol=REL_TOL,
         slack=BF16_ULP, bound_bytes=4 * (N + 1) + 2 * E * F + 2 * N * F,
-        flops=E * F, peak=FP32_FLOPS_PER_S,
-        scale=K.sorted_segment_sum_plain(msgs.float().abs(), r, rp, N),
-        flush=flush, gather_bytes=2 * E * F, twice=True)
+        flops=E * F, peak=FP32_FLOPS_PER_S, scale=long_scale,
+        flush=flush, gather_bytes=2 * E * F, twice=True,
+        extra={"route": route, "long_ms": median_ms(
+            lambda: K._k4_sum(msgs, None, None, rp, N, "long"),
+            flush)})
 
     a_k5 = csr(s, w.to(bf16), N)
     name = f"K5 banded_sorted_spmm F=128 bfloat16 window={window}"
@@ -464,7 +503,10 @@ def phase_kernels_banded():
         peak=FP32_FLOPS_PER_S,
         scale=K.banded_sorted_spmm_plain(xb.float().abs(), s, rp, w.abs(),
                                          N, window=window),
-        flush=flush, gather_bytes=2 * E * F, twice=True)
+        flush=flush, gather_bytes=2 * E * F, twice=True,
+        extra={"route": K.banded_route(xb), "old_ms": median_ms(
+            lambda: K.spmm_csr(xb, w, None, s, None, rp, None, None, None,
+                               N), flush)})
 
     b = torch.randn(N, F, generator=gen, device="cuda")
     # the library's SDDMM: (b @ xᵀ) sampled at (r, s), one value per edge;
@@ -486,15 +528,26 @@ def phase_kernels_banded():
     return modes
 
 
-def phase_kernels_readout(batch):
-    """K4 as the sparse readout runs it: the served model's post-pool rows
-    ``h [N, 128]`` f32 on the first request (masked rows zeroed, as
-    ``global_reduce`` does), one segment over the graph's ascending
-    ``node_graph``; beside the library's ``torch.segment_reduce`` on the
-    same offsets, the ``index_add_`` that the readout ran before
-    (``index_add_ms``)."""
+def phase_kernels_readout(batch, d_graphs):
+    """K4 as the sparse readout runs it: ``gather_segment_sum`` on the
+    route ``segment_route`` picks, reading f32 rows of 128 through the
+    stable sort of their graph ids and skipping masked rows, on four
+    batches: the served model's post-pool rows of the first request (one
+    segment of 65,536 rows, half masked), the dense cell's 64 graphs
+    collated as one sparse batch (64 segments of 256 rows) and the
+    ``SMALL_BATCHES`` (seeded rows, a tenth masked; 1,024 graphs of 18
+    rows take the ``"wide"`` route, the others ``"long"``).  The bound counts each kept row read
+    once, the order, the mask, the offsets and the output.  Beside each
+    row: ``torch.segment_reduce`` on the masked rows in sort order, the
+    ``index_add_`` the readout once ran (``index_add_ms``), the same call
+    forced onto each route (``long_ms``; ``old_ms``, the ``"wide"`` route
+    the readout ran before ``segment_reduce.cu``; both held to the plain
+    version first), and the unfused sum (``unfused_ms``:
+    ``sorted_segment_sum`` of the masked rows copied in sort order), which
+    must give the gathered call's bits."""
     from torch.nn import functional as F_
 
+    from tgp_tpu_torch import from_graphs
     from tgp_tpu_torch.ops.kernels import segment_spmm as K
 
     model = build_model("cuda").eval()
@@ -506,30 +559,73 @@ def phase_kernels_readout(batch):
         h = g.x
         for conv in model.post_convs:
             h = F_.relu(conv(g, h))
-    B, (N, F) = g.num_graphs, h.shape
-    msgs = torch.where(g.node_mask[:, None], h.float(), 0.0).contiguous()
-    ids = g.node_graph.long()
-    if B != 1 or bool((ids[1:] < ids[:-1]).any()):
-        raise AssertionError("the request's node_graph is not one ascending "
-                             "graph")
-    rp = torch.searchsorted(ids, torch.arange(B + 1, device="cuda"),
-                            out_int32=True)
-    rids, offsets = ids.to(torch.int32), rp.long()
+    d_batch = from_graphs(d_graphs, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batches = [
+        (h.float().contiguous(), g.node_graph, g.node_mask, g.num_graphs),
+        (d_batch.x.float().contiguous(), d_batch.node_graph,
+         d_batch.node_mask, d_batch.num_graphs)]
+    for graphs, nodes in SMALL_BATCHES:
+        n = graphs * nodes
+        batches.append((
+            torch.randn(n, HIDDEN, generator=gen, device="cuda"),
+            torch.arange(n, device="cuda") // nodes,
+            torch.rand(n, generator=gen, device="cuda") >= 0.1, graphs))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    name = f"K4 readout F={F} float32 segments={B}"
-    row = check_mode(
-        name, lambda: K.sorted_segment_sum(msgs, rids, rp, B),
-        lambda: K.sorted_segment_sum_plain(msgs, rids, rp, B),
-        lambda: torch.segment_reduce(msgs, "sum", offsets=offsets),
-        rel_tol=REL_TOL, bound_bytes=4 * N * F + 4 * (B + 1) + 4 * B * F,
-        flops=N * F, peak=FP32_FLOPS_PER_S,
-        scale=K.sorted_segment_sum_plain(msgs.abs(), rids, rp, B),
-        flush=flush, note="torch.segment_reduce(sum, offsets)", twice=True,
-        extra={"rows": N, "index_add_ms": median_ms(
-            lambda: torch.zeros(B, F, device="cuda").index_add_(0, ids, msgs),
-            flush)})
+    rows = {}
+    for rows_f, ids, mask, B in batches:
+        N, F = rows_f.shape
+        ids = ids.long()
+        cids = ids.to(torch.int32)
+        rids, perm = torch.sort(cids, stable=True)
+        perm = perm.to(torch.int32)
+        rp = torch.searchsorted(rids, torch.arange(
+            B + 1, dtype=torch.int32, device="cuda"), out_int32=True)
+        masked = torch.where(mask[:, None], rows_f, 0.0)
+        in_order = masked[perm.long()].contiguous()
+        route = K.segment_route(B, N, F)
+
+        def kernel():
+            return K.gather_segment_sum(rows_f, perm, mask, cids, rp, B)
+
+        def on_route(r):
+            return lambda: K._k4_sum(rows_f, perm, mask, rp, B, r)
+
+        def unfused():
+            return K.sorted_segment_sum(in_order, rids, rp, B)
+
+        def plain():
+            return K.gather_segment_sum_plain(rows_f, perm, mask, rp, B)
+
+        scale = K.gather_segment_sum_plain(rows_f.abs(), perm, mask, rp, B)
+        ref = plain()
+        for r in K.SEGMENT_ROUTES:
+            _worst(f"K4 readout segments={B} {r} route", on_route(r)(), ref,
+                   scale, REL_TOL)
+        if not torch.equal(kernel(), unfused()):
+            raise AssertionError(f"K4 readout segments={B}: the gathered "
+                                 "call differs from the unfused sum of the "
+                                 "masked rows")
+        kept = int(mask.sum())
+        name = f"K4 readout F={F} float32 segments={B}"
+        rows[name] = check_mode(
+            name, kernel, plain,
+            lambda: torch.segment_reduce(in_order, "sum",
+                                         offsets=rp.long()),
+            rel_tol=REL_TOL,
+            bound_bytes=4 * kept * F + 4 * N + N + 4 * (B + 1) + 4 * B * F,
+            flops=kept * F, peak=FP32_FLOPS_PER_S, scale=scale, flush=flush,
+            note="torch.segment_reduce(sum, offsets) of the masked rows in "
+                 "sort order", twice=True,
+            extra={"rows": N, "kept_rows": kept, "route": route,
+                   "long_ms": median_ms(on_route("long"), flush),
+                   "old_ms": median_ms(on_route("wide"), flush),
+                   "unfused_ms": median_ms(unfused, flush),
+                   "index_add_ms": median_ms(
+                       lambda: torch.zeros(B, F, device="cuda").index_add_(
+                           0, ids, masked), flush)})
     del flush
-    return {name: row}
+    return rows
 
 
 def phase_kernels_k3(adj):
@@ -686,11 +782,13 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
         served.append(predictor([g]))
         req_ms.append(1e3 * (time.perf_counter() - t0))
     launches = read_counts()
+    k4_routes = dict(_wrappers()["sorted_segment_sum"].launches_by_route)
     want = dict.fromkeys(launches, 0)
     want.update(spmm_csr=3 * REQUESTS, sorted_segment_sum=REQUESTS)
-    if launches != want:
-        raise AssertionError(f"{REQUESTS} requests launched {launches}, "
-                             f"want {want}")
+    if launches != want or k4_routes != dict(long=REQUESTS, wide=0):
+        raise AssertionError(f"{REQUESTS} requests launched {launches}, K4 "
+                             f"by route {k4_routes}, want {want} and every "
+                             "readout on the long route")
     served = np.concatenate(served)
     if served.shape != (REQUESTS, CLASSES) or not np.isfinite(served).all():
         raise AssertionError(f"bad logits {served}")
@@ -730,6 +828,7 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
         edges_per_s=N_EDGES / (statistics.median(req_ms) / 1e3),
         collate_ms=collate_ms, forward_device_ms=statistics.median(fwd),
         forward_device_ms_all=fwd, launches=launches,
+        k4_launches_by_route=k4_routes,
         logits_first=served[0].tolist(), cpu_logits_first=ref[0].tolist(),
         max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=True)
     print(f"[serving] {json.dumps(result)}", flush=True)
@@ -989,11 +1088,11 @@ def phase_train_sparse(card, profile: bool):
     K4 = _wrappers()["sorted_segment_sum"]
 
     # the main path, counted: SPARSE_STEPS steps, K1 five times a step and
-    # K4 (the readout) once
+    # K4 (the readout) once, on its "long" route
     reset_counts()
     step_ms, losses, per_step, k4_per_step = [], [], [], []
     for i in range(SPARSE_STEPS):
-        before, k4_before = K1.launches, K4.launches
+        before, k4_before = K1.launches, K4.launches_by_route["long"]
         if i == 0:  # step one keeps its gradients for the CPU check
             def first():
                 out = _step_one_grads(model, batch, y)
@@ -1009,12 +1108,16 @@ def phase_train_sparse(card, profile: bool):
         step_ms.append(ms)
         losses.append(float(loss))
         per_step.append(K1.launches - before)
-        k4_per_step.append(K4.launches - k4_before)
+        k4_per_step.append(K4.launches_by_route["long"] - k4_before)
     launches = read_counts()
     if (per_step != [K1_PER_STEP] * SPARSE_STEPS
             or k4_per_step != [1] * SPARSE_STEPS):
-        raise AssertionError(f"K1 launches per step {per_step}, K4 "
-                             f"{k4_per_step}, want {K1_PER_STEP} and 1")
+        raise AssertionError(f"K1 launches per step {per_step}, K4 on the "
+                             f"long route {k4_per_step}, want {K1_PER_STEP} "
+                             "and 1")
+    if launches["sorted_segment_sum"] != SPARSE_STEPS:
+        raise AssertionError(f"K4 launched {launches['sorted_segment_sum']} "
+                             f"times in {SPARSE_STEPS} steps")
     if any(n for name, n in launches.items()
            if name not in ("spmm_csr", "sorted_segment_sum")):
         raise AssertionError(f"unexpected launches {launches}")
@@ -1145,7 +1248,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
@@ -1182,13 +1286,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     collate_ms = 1e3 * (time.perf_counter() - t0)
     modes = phase_kernels(batch)
-    modes.update(phase_kernels_readout(batch))
+    d_graphs, d_labels = dense_graphs(0)
+    modes.update(phase_kernels_readout(batch, d_graphs))
 
     # the dense training slice's batch (bench.py::bench_jax): collated,
     # densified and normalized once, outside the steps
     from tgp_tpu_torch import gcn_norm_dense, to_dense
 
-    d_graphs, d_labels = dense_graphs(0)
     d_batch = from_graphs(d_graphs, device="cuda")
     n_dense_edges = int(d_batch.edge_mask.sum())
     dense = gcn_norm_dense(to_dense(d_batch), adj_dtype=torch.bfloat16)
@@ -1221,10 +1325,10 @@ def main(argv=None) -> int:
               modes[f"K2 segment_sum_sorted F={FEATURES} bfloat16"]),
         entry("bmm", K3_SOURCE, K3_REPLACES, train["launches"]["bmm"],
               k3_modes["fwd pre"]),
-        entry("sorted_segment_sum", SOURCE, K4_REPLACES,
+        entry("sorted_segment_sum", K4_SOURCE, K4_REPLACES,
               sparse["launches"]["sorted_segment_sum"],
               modes[f"K4 readout F={HIDDEN} float32 segments=1"]),
-        entry("spmm_banded", SOURCE, K5_REPLACES, loc["spmm_banded"],
+        entry("spmm_banded", K5_SOURCE, K5_REPLACES, loc["spmm_banded"],
               next(m for k, m in band_modes.items() if k.startswith("K5"))),
         entry("sddmm_banded", K6_SOURCE, K6_REPLACES, loc["sddmm_banded"],
               next(m for k, m in band_modes.items() if k.startswith("K6")))]

@@ -1,8 +1,9 @@
 """The CUDA kernels of ``tgp_tpu_torch/csrc/`` (``segment_spmm.cu`` in
-its K1, K2, K4 and windowed K5 modes and K1's backward, ``bmm.cu``,
-``sddmm.cu``) against their plain PyTorch versions, on the card, and
-``segment_spmm.cu``'s runs on the same inputs against each other (its sum
-order is fixed, so they are equal bit for bit).  Without one the tests
+its K1, K2 and K4 ``"wide"`` modes and K1's backward, ``segment_reduce.cu``
+(K4's ``"long"`` route and the readout's gathered sum), ``banded_spmm.cu``
+(K5), ``bmm.cu``, ``sddmm.cu``) against their plain PyTorch versions, on
+the card, and runs on the same inputs against each other (every sum order
+but K3's is fixed, so they are equal bit for bit).  Without one the tests
 skip; on a GPU machine (which need not have JAX) run them alone:
 
     python3 -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda_kernels.py
@@ -720,3 +721,257 @@ def test_cuda_readout_takes_k4(graphs, ascending):
     keep = torch.tensor(nm, device="cuda")[:, None]
     assert torch.equal(xt.grad, torch.where(
         keep, g[torch.tensor(ng, device="cuda").long()], 0.0))
+
+
+# ---------------------------------------------------------------------------
+# K4's "long" route (segment_reduce.cu) and the readout's gathered sum
+# ---------------------------------------------------------------------------
+
+
+def _long_case(lengths, F, seed, tail=37):
+    """Messages ``[E + tail, F]`` (``tail`` rows past ``row_ptr[-1]`` that
+    no sum may read: NaN) over segments of the given lengths."""
+    rng = np.random.default_rng(seed)
+    rp = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    e = int(rp[-1])
+    msgs = np.concatenate([rng.normal(size=(e, F)),
+                           np.full((tail, F), np.nan)]).astype(np.float32)
+    rids = np.concatenate([np.repeat(np.arange(len(lengths)), lengths),
+                           np.full(tail, len(lengths))]).astype(np.int32)
+    return msgs, rids, rp
+
+
+def _check_long(msgs, rids, rp, dtype):
+    """K4's "long" kernel twice (bit-equal, one counted launch each on its
+    route) against its plain version."""
+    tdt = getattr(torch, dtype)
+    n = rp.shape[0] - 1
+    m = torch.tensor(msgs, device="cuda").to(tdt)
+    r, p = torch.tensor(rids, device="cuda"), torch.tensor(rp, device="cuda")
+    before = dict(K.sorted_segment_sum.launches_by_route)
+    # the route's own entry: the rule would send short segments to "wide"
+    got = _twice_equal(lambda: K._k4_sum(m, None, None, p, n, "long"))
+    assert K.sorted_segment_sum.launches_by_route == dict(
+        before, long=before["long"] + 2)
+    _close(got, K.sorted_segment_sum_plain(m, r, p, n),
+           K.sorted_segment_sum_plain(m.float().abs(), r, p, n), dtype)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 36, 128, 200])
+@pytest.mark.parametrize("rows", [0, 1, 255, 65_536, 65_537])
+def test_cuda_k4_long_one_segment(rows, F, dtype):
+    """One segment of 0 to 65,537 rows (one chunk, many chunks, many
+    first-level groups), the rows past ``row_ptr[1]`` NaN and unread."""
+    _skip_without_card()
+    got = _check_long(*_long_case([rows], F, seed=rows + F), dtype)
+    if rows == 0:
+        assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 36, 128, 200])
+def test_cuda_k4_long_many_segments(F, dtype):
+    """Empty, short and long segments mixed (runs of empty rows inside a
+    chunk, rows ending on and across chunk and group boundaries)."""
+    _skip_without_card()
+    rng = np.random.default_rng(F)
+    lengths = rng.choice([0, 0, 1, 3, 64, 300, 5000, 70_000], 120)
+    got = _check_long(*_long_case(lengths, F, seed=F), dtype)
+    assert not got[torch.tensor(lengths == 0, device="cuda")].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("graphs", [1, 64, 1024])
+def test_cuda_readout_gather_equals_unfused(graphs, dtype):
+    """The readout's gathered sum (rows read through the sort order, masked
+    rows skipped) against the sum it replaced on the same route's kernel
+    (``"long"`` for 1 and 64 graphs, ``"wide"`` for 1,024): the rows zeroed,
+    sorted and copied, then ``sorted_segment_sum``; equal bit for bit,
+    also with NaN and inf in masked rows, and twice."""
+    _skip_without_card()
+    rng = np.random.default_rng(graphs)
+    n = 16_384
+    ng = rng.permutation(np.sort(rng.integers(0, graphs, n))).astype(
+        np.int32)
+    keep = rng.random(n) > 0.5
+    x = rng.normal(size=(n, 128)).astype(np.float32)
+    x[np.flatnonzero(~keep)[:3]] = np.array([[np.nan], [np.inf], [-np.inf]])
+    tdt = getattr(torch, dtype)
+    xt = torch.tensor(x, device="cuda").to(tdt)
+    kt, ids = (torch.tensor(a, device="cuda") for a in (keep, ng))
+    rids, perm = torch.sort(ids, stable=True)
+    rp = torch.searchsorted(rids, torch.arange(graphs + 1, device="cuda",
+                                               dtype=torch.int32),
+                            out_int32=True)
+    perm = perm.to(torch.int32)
+    route = K.segment_route(graphs, n, 128)
+    assert route == ("wide" if graphs == 1024 else "long")
+    before = dict(K.sorted_segment_sum.launches_by_route)
+    fused = _twice_equal(lambda: K.gather_segment_sum(xt, perm, kt, ids, rp,
+                                                      graphs))
+    assert K.sorted_segment_sum.launches_by_route == dict(
+        before, **{route: before[route] + 2})
+    rows = torch.where(kt[:, None], xt, 0.0)[perm.long()].contiguous()
+    unfused = K.sorted_segment_sum(rows, rids, rp, graphs)
+    assert torch.isfinite(fused.float()).all()
+    assert torch.equal(fused, unfused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 4, 36, 128])
+@pytest.mark.parametrize("route", ["long", "wide"])
+def test_cuda_readout_gather_on_each_route(route, F, dtype):
+    """The gathered sum on either kernel (the narrow mode too, F <= 4)
+    against its plain version: ids in any order, empty graphs, NaN and inf
+    in masked rows, rows past the order's length unread; twice bit-equal,
+    one counted launch a call on the route."""
+    _skip_without_card()
+    rng = np.random.default_rng(F)
+    graphs, n = 300, 9000
+    ng = rng.integers(0, graphs, n).astype(np.int32)
+    ng[ng % 7 == 3] = 5  # graphs 3, 10, ... empty, graph 5 long
+    keep = rng.random(n) > 0.3
+    x = rng.normal(size=(n + 11, F)).astype(np.float32)
+    x[np.flatnonzero(~keep)[:3]] = np.array([[np.nan], [np.inf], [-np.inf]])
+    tdt = getattr(torch, dtype)
+    xt = torch.tensor(x, device="cuda").to(tdt)
+    kt = torch.tensor(np.concatenate([keep, np.zeros(11, bool)]),
+                      device="cuda")
+    rids, perm = torch.sort(torch.tensor(ng, device="cuda"), stable=True)
+    perm = perm.to(torch.int32)
+    rp = torch.searchsorted(rids, torch.arange(graphs + 1, device="cuda",
+                                               dtype=torch.int32),
+                            out_int32=True)
+    before = dict(K.sorted_segment_sum.launches_by_route)
+    got = _twice_equal(lambda: K._k4_sum(xt, perm, kt, rp, graphs, route))
+    assert K.sorted_segment_sum.launches_by_route == dict(
+        before, **{route: before[route] + 2})
+    assert torch.isfinite(got.float()).all()
+    _close(got, K.gather_segment_sum_plain(xt, perm, kt, rp, graphs),
+           K.gather_segment_sum_plain(xt.float().abs(), perm, kt, rp,
+                                      graphs), dtype)
+    assert not got[torch.bincount(rids.long(), minlength=graphs) == 0].any()
+
+
+# ---------------------------------------------------------------------------
+# K5: banded_spmm.cu's ring
+# ---------------------------------------------------------------------------
+
+
+def _banded_ring_case(case, F, seed):
+    """K6's edge cases (``_sddmm_case``) as a receiver-sorted K5 layout over
+    rows padded to 128: senders beside their receivers, a hub receiver,
+    falling window starts, random senders, padding and negative senders,
+    a window wider than the ring."""
+    a, b, s, r, window = _sddmm_case(case, F, seed=seed)
+    order = np.argsort(r, kind="stable")
+    s, r = s[order], r[order]
+    num_rows = -(-b.shape[0] // 128) * 128
+    rp = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=num_rows))]
+                        ).astype(np.int32)
+    w = np.random.default_rng(seed).normal(size=s.shape[0]).astype(
+        np.float32)
+    return a, s.astype(np.int32), w, rp, num_rows, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 36, 128, 200])
+@pytest.mark.parametrize("case", SDDMM_CASES)
+def test_cuda_banded_spmm_ring(case, F, dtype):
+    """K5's ring kernel against its plain version within 1e-5 of Σ|terms|
+    (plus one bf16 rounding), on inputs that leave the banded shape; the
+    16-byte route where rows are 16-byte aligned, the element route
+    elsewhere; two runs equal bit for bit, one launch each."""
+    _skip_without_card()
+    x, s, w, rp, n, window = _banded_ring_case(case, F, seed=F)
+    tdt = getattr(torch, dtype)
+    xt = torch.tensor(x, device="cuda").to(tdt)
+    st, wt, rpt = (torch.tensor(v, device="cuda") for v in (s, w, rp))
+    want = "vector" if (F * xt.element_size()) % 16 == 0 else "element"
+    assert K.banded_route(xt) == want
+    before = dict(K.banded_sorted_spmm.launches_by_route)
+    got = _twice_equal(lambda: K.banded_sorted_spmm(xt, st, rpt, wt, n,
+                                                    window=window))
+    assert K.banded_sorted_spmm.launches_by_route == dict(
+        before, **{want: before[want] + 2})
+    _close(got, K.banded_sorted_spmm_plain(xt, st, rpt, wt, n,
+                                           window=window),
+           K.banded_sorted_spmm_plain(xt.float().abs(), st, rpt, wt.abs(),
+                                      n, window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_banded_spmm_unaligned_rows(dtype):
+    """x one element off 16-byte alignment takes the element route."""
+    _skip_without_card()
+    x, s, w, rp, n, window = _banded_ring_case("banded", 128, seed=5)
+    tdt = getattr(torch, dtype)
+    t = torch.tensor(x, device="cuda").to(tdt)
+    xt = torch.empty(t.numel() + 1, dtype=tdt,
+                     device="cuda")[1:].view(t.shape).copy_(t)
+    st, wt, rpt = (torch.tensor(v, device="cuda") for v in (s, w, rp))
+    assert K.banded_route(xt) == "element"
+    got = _twice_equal(lambda: K.banded_sorted_spmm(xt, st, rpt, wt, n,
+                                                    window=window))
+    _close(got, K.banded_sorted_spmm_plain(xt, st, rpt, wt, n,
+                                           window=window),
+           K.banded_sorted_spmm_plain(xt.float().abs(), st, rpt, wt.abs(),
+                                      n, window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_rows,n_x", [(64, 1000), (256, 1000),
+                                            (128, 100)])
+def test_cuda_banded_spmm_block_rows_and_small_x(block_rows, n_x, dtype):
+    """Receiver blocks of 64 or 256 rows (the ring kernel's steps and
+    staged offsets follow them), and x with fewer rows than the window
+    (every window starts at 0 and ends at x's last row)."""
+    _skip_without_card()
+    x, s, r, w, rp, n = _band_case(block_rows + n_x, 36, n=n_x,
+                                   e=6 * n_x, bw=30,
+                                   num_rows=-(-n_x // block_rows) * block_rows)
+    tdt = getattr(torch, dtype)
+    xt = torch.tensor(x, device="cuda").to(tdt)
+    st, wt, rpt = (torch.tensor(a, device="cuda") for a in (s, w, rp))
+    got = _twice_equal(lambda: K.banded_sorted_spmm(
+        xt, st, rpt, wt, n, window=128, block_rows=block_rows))
+    _close(got, K.banded_sorted_spmm_plain(xt, st, rpt, wt, n, window=128,
+                                           block_rows=block_rows),
+           K.banded_sorted_spmm_plain(xt.float().abs(), st, rpt, wt.abs(),
+                                      n, window=128, block_rows=block_rows),
+           dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_gcn_sorted_branch_is_bit_equal_twice():
+    """``GCNConv``'s sorted branch (no CSR offsets): the degree and the
+    messages both through K2's fixed-order sum, so two runs give the same
+    bits."""
+    from tgp_tpu_torch.graph import from_graphs
+    from tgp_tpu_torch.mp.gcn import GCNConv
+
+    _skip_without_card()
+    rng = np.random.default_rng(3)
+    graphs = []
+    for n in (700, 300, 900):
+        e = 8 * n
+        graphs.append((rng.normal(size=(n, 16)).astype(np.float32),
+                       np.stack([rng.integers(0, n, e),
+                                 rng.integers(0, n, e)])))
+    batch = from_graphs(graphs, sort_edges=True, device="cuda").replace(
+        row_ptr=None, in_degree=None)
+    conv = GCNConv(16, 32, use_kernel=True, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    before = K.segment_sum_sorted.launches
+    with torch.no_grad():
+        _twice_equal(lambda: conv(batch))
+    assert K.segment_sum_sorted.launches == before + 4

@@ -104,6 +104,34 @@ def test_gcn_branches_match_gcn_norm(branch, self_loops, shrink):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("add_self_loops", [False, True])
+def test_gcn_sorted_branch_matches_jax_sorted_branch(add_self_loops,
+                                                     monkeypatch):
+    """The sorted branch (no CSR offsets) against the JAX package's Pallas
+    sorted branch (interpret mode) on loop-free graphs with positive
+    weights: the degree and the messages both go through K2's fixed-order
+    sum (``segment_sum_sorted``), never ``segment_sum``'s ``index_add_``."""
+    import tgp_tpu_torch.mp.gcn as t_gcn
+
+    def no_scatter(*a, **kw):
+        raise AssertionError("the sorted branch took segment_sum")
+
+    jb, tb = _batches(_graphs(7))
+    jb = jb.replace(row_ptr=None, senders_t=None, in_degree=None)
+    tb = tb.replace(row_ptr=None, in_degree=None)
+    jconv = JGCN(8, use_pallas=True, add_self_loops=add_self_loops)
+    p = jconv.init(jax.random.key(2), jb, jb.x)
+    p = jax.tree.map(lambda a: a + 0.1, p)
+    tconv = TGCN(jb.num_features, 8, device="cpu", use_kernel=True,
+                 add_self_loops=add_self_loops)
+    tconv.lin.weight.data = torch.tensor(
+        np.asarray(p["params"]["Dense_0"]["kernel"]).T.copy())
+    tconv.bias.data = torch.tensor(np.asarray(p["params"]["bias"]))
+    monkeypatch.setattr(t_gcn, "segment_sum", no_scatter)
+    np.testing.assert_allclose(_np(tconv(tb)), _np(jconv.apply(p, jb, jb.x)),
+                               atol=2e-5)
+
+
 def test_gcn_csr_without_self_loop_flag_computes_it():
     jb, tb = _batches(_graphs(5, self_loops=True))
     jconv, p, tconv = _conv_pair(jb, jax_pallas=False, use_kernel=True)

@@ -291,6 +291,25 @@ def test_banded_sorted_spmm_matches_pallas(break_band, F, dtype):
         assert np.abs(_np(full) - _np(ref)).max() > 1e-2
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["hub", "falling", "unsorted", "padding"])
+def test_banded_sorted_spmm_ring_cases_match_pallas(case, dtype):
+    """The layouts the CUDA tests hold the ring kernel to (a hub receiver,
+    falling window starts, random senders, padding and negative senders):
+    the plain version against the Pallas kernel in interpret mode."""
+    from tests.test_torch_cuda_kernels import _banded_ring_case
+
+    x, s, w, rp, n, window = _banded_ring_case(case, 36, seed=2)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    ref = j_banded(jnp.asarray(x, jdt), jnp.asarray(s), jnp.asarray(rp),
+                   jnp.asarray(w), n, window=window, interpret=True)
+    got = K.banded_sorted_spmm(torch.tensor(x).to(tdt), torch.tensor(s),
+                               torch.tensor(rp), torch.tensor(w), n,
+                               window=window)
+    assert got.dtype == tdt and got.shape == (n, 36)
+    _close(got, ref, 1e-5 if dtype == "float32" else 1e-2)
+
+
 def test_banded_window_base_and_small_x():
     """x with fewer rows than the window (JAX pads it with zeros), empty
     blocks, and a window past the last row."""

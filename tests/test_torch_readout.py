@@ -2,8 +2,9 @@
 gradients, on the same seeded numpy inputs (f32).
 
 The port sums each graph's rows in a fixed order: a stable sort of the
-graph ids, then K4 (``sorted_segment_sum``, its plain version on the CPU)
-over per-graph offsets.  Tolerance: 1e-5 of Σ|terms| of each output
+graph ids, then K4 (``gather_segment_sum``: the rows read through the sort
+order, masked ones skipped; its plain version on the CPU) over per-graph
+offsets.  Tolerance: 1e-5 of Σ|terms| of each output
 element (the sums of the two packages may add in other orders); a mean
 divides both by the graph's count.
 """
@@ -63,9 +64,18 @@ def _no_mask(rng):
     return x, ng, None, b
 
 
+def _nan_in_masked_rows(rng):
+    """NaN and inf in masked rows: the kernel skips them (JAX selects 0)."""
+    x, ng, nm, b = _unsorted(rng)
+    x = x.copy()
+    x[np.flatnonzero(~nm)[:2]] = np.array([[np.nan], [np.inf]])
+    return x, ng, nm, b
+
+
 CASES = {"padding in the last graph": _padded, "empty graphs": _empty_graph,
          "ids out of range": _out_of_range, "ids not ascending": _unsorted,
-         "no mask, ids not ascending": _no_mask}
+         "no mask, ids not ascending": _no_mask,
+         "NaN in masked rows": _nan_in_masked_rows}
 
 
 def _jax(x, ng, nm, b, op):
@@ -154,24 +164,27 @@ def test_int_rows_keep_the_scatter():
 
 @pytest.mark.parametrize("op", ["sum", "mean"])
 def test_sparse_readout_takes_sorted_segment_sum(monkeypatch, op):
-    """The sparse sum goes through K4's entry (its plain path here), once,
-    and never through ``segment_sum``'s ``index_add_``."""
+    """The sparse sum goes through K4's entry with the rows' sort order
+    and mask (its plain path here), once, on the route the shape rule
+    picks, and never through ``segment_sum``'s ``index_add_`` nor the
+    unmasked sum."""
     calls = []
-    real = K._csr_sum
+    real = K._k4_sum
 
-    def spy(x, w, idx, row_ptr, num_rows, counter, win=None):
-        calls.append(counter.__name__)
-        return real(x, w, idx, row_ptr, num_rows, counter, win)
+    def spy(x, perm, keep, row_ptr, num_rows, route):
+        calls.append((perm is not None, keep is not None, route))
+        return real(x, perm, keep, row_ptr, num_rows, route)
 
-    def no_scatter(*a, **kw):
-        raise AssertionError("the readout took segment_sum")
+    def refuse(*a, **kw):
+        raise AssertionError("the readout took another sum")
 
-    monkeypatch.setattr(K, "_csr_sum", spy)
-    monkeypatch.setattr(t_gr, "segment_sum", no_scatter)
+    monkeypatch.setattr(K, "_k4_sum", spy)
+    monkeypatch.setattr(K, "_csr_sum", refuse)
+    monkeypatch.setattr(t_gr, "segment_sum", refuse)
     x, ng, nm, b = _padded(np.random.default_rng(9))
     tx = torch.tensor(x, requires_grad=True)
     _torch(tx, ng, nm, b, op).sum().backward()
-    assert calls == ["sorted_segment_sum"]
+    assert calls == [(True, True, K.segment_route(b, *x.shape))]
     assert tx.grad is not None
 
 

@@ -115,9 +115,9 @@ def test_spmm_csr_backward_runs_the_kernel_path_over_the_transpose(
     calls = []
     real = K._csr_sum
 
-    def spy(x, w, idx, row_ptr, num_rows, counter, win=None):
+    def spy(x, w, idx, row_ptr, num_rows, counter):
         calls.append((counter, row_ptr))
-        return real(x, w, idx, row_ptr, num_rows, counter, win)
+        return real(x, w, idx, row_ptr, num_rows, counter)
 
     monkeypatch.setattr(K, "_csr_sum", spy)
     args = _layout(c, torch.tensor)
@@ -317,18 +317,24 @@ def test_sparse_training_step_runs_five_k1_passes(monkeypatch):
     """The pinned count: conv1's product, conv2's degree pass and product
     forward; the two products' ``d_h`` backward (no ``d_w``: the edge
     weights take no gradient, and the degree pass none at all).  Beside
-    them the sum readout runs K4 (``sorted_segment_sum``) once, forward
+    them the sum readout runs K4 (``sorted_segment_sum``'s kernel on the
+    shape rule's route, through ``gather_segment_sum``) once, forward
     only: its gradient is a gather."""
     graphs = _sparse_graphs(22, n=300, deg=4)
     _, _, _, tm, tb = _model_pair(graphs, False)
     calls = []
-    real = K._csr_sum
+    real, real_k4 = K._csr_sum, K._k4_sum
 
-    def spy(x, w, idx, row_ptr, num_rows, counter, win=None):
+    def spy(x, w, idx, row_ptr, num_rows, counter):
         calls.append((counter.__name__, torch.is_grad_enabled()))
-        return real(x, w, idx, row_ptr, num_rows, counter, win)
+        return real(x, w, idx, row_ptr, num_rows, counter)
+
+    def spy_k4(*args):
+        calls.append(("sorted_segment_sum", torch.is_grad_enabled()))
+        return real_k4(*args)
 
     monkeypatch.setattr(K, "_csr_sum", spy)
+    monkeypatch.setattr(K, "_k4_sum", spy_k4)
     logits, _ = tm(tb)
     n_fwd = len(calls)
     torch.nn.functional.cross_entropy(

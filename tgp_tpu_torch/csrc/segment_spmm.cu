@@ -2,25 +2,24 @@
 //
 //   out[r, :] = sum_{e = row_ptr[r]}^{row_ptr[r+1]-1} (w ? w[e] : 1) * x[idx ? idx[e] : e, :]
 //
-// Replaces four Pallas TPU kernels of tgp_tpu/ops/pallas/segment_spmm.py:
+// over the edges whose row of x has a keep flag of 1 when `keep` is given
+// (a row flagged 0 is skipped, not multiplied by 0, so a NaN in it never
+// reaches a sum).
+//
+// Replaces three Pallas TPU kernels of tgp_tpu/ops/pallas/segment_spmm.py:
 //   * _grouped_kernel_w (K1), run by spmm_csr -> _gather_kernel_pass: the
 //     weighted SpMM over a receiver-sorted static CSR (idx = senders), and
 //     its backward over the sender-sorted transpose layout;
 //   * _grouped_kernel (K2), run by segment_sum_sorted, and _kernel /
 //     sorted_segment_sum_pallas (K4), run by spmm_sorted: the unweighted
-//     segment-sum of receiver-sorted messages (idx = null, w = null);
-//   * _banded_kernel / banded_sorted_spmm_pallas (K5), run by spmm_banded:
-//     the windowed mode (win_base != null).  Row r's edges add only senders
-//     in [win_base[r / block_rows], + window) that lie below n_x.  The TPU
-//     kernel staged that window in VMEM to turn the gather into a matmul;
-//     here the gather is the same register gather as K1's (x's rows come
-//     from L2), and the window is only the mask that keeps the function
-//     the same.  A first, small kernel finds each block's window start
-//     (one thread block per receiver block, a min over its senders).
+//     segment-sum of receiver-sorted messages (idx = null, w = null), K4
+//     where its segments are short (long ones take segment_reduce.cu), and
+//     the sparse readout's sum of short graphs (idx = the rows' sort order,
+//     keep = the mask).
 // Every mode rounds each weight to x's type before its product, as the
-// TPU kernels' one-hot * w in the messages' dtype does; outside the
-// windowed mode a gather index is clamped to [0, n_x), as JAX's gather
-// and the backward's clip of the receivers do.
+// TPU kernels' one-hot * w in the messages' dtype does, and clamps a
+// gather index to [0, n_x), as JAX's gather and the backward's clip of
+// the receivers do.
 //
 // What bounds it on an H100: bytes.  It does 2 flops per gathered element,
 // far below the card's ~295 flop/byte balance point.  The least traffic is
@@ -32,7 +31,7 @@
 // row in the wide mode, nor more than 256 edges in the narrow one, so a
 // long row (the collator's padding makes row 0 tens of thousands of edges
 // long) is shared by many warps.  Two modes:
-//   * wide rows (F > 4, or the windowed mode): a warp per row sums a row
+//   * wide rows (F > 4): a warp per row sums a row
 //     of at most S edges, lanes across columns in 16-byte vectors and lane
 //     groups across edges, gathering x[idx_e] straight into f32 registers;
 //     a longer row's first S edges go to its own warp and the rest to the
@@ -112,39 +111,28 @@ __device__ __forceinline__ int lane_id() { return threadIdx.x & (kWarp - 1); }
 struct Csr {
   const int32_t* idx;
   const float* w;
+  const uint8_t* keep;
   const int32_t* row_ptr;
-  const int32_t* win_base;
-  int window, block_rows, n_x;
+  int n_x;
   float* part;
   int32_t* counters;
   int num_rows, F, R, n_ranges;
 };
 
-// The row of x that edge e gathers (-1: none) and its weight, rounded to
-// T.  Windowed mode: a sender outside [win.x, win.y) adds nothing.
-template <typename T>
-__device__ __forceinline__ void edge_src(const Csr& c, int e, int2 win,
-                                         int& src, float& wt) {
-  int s = c.idx != nullptr ? c.idx[e] : e;
-  float v = c.w != nullptr ? to_float(from_float<T>(c.w[e])) : 1.f;
-  if (c.win_base != nullptr) {
-    if (s < win.x || s >= win.y) {
-      s = -1;
-      v = 0.f;
-    }
-  } else {
-    s = min(max(s, 0), c.n_x - 1);
+// The row of x that edge e gathers (clamped to x's rows) and its weight,
+// rounded to T; with KEEP (c.keep given), src = -1 and weight 0 for a row
+// whose keep flag is 0.  KEEP is a template flag so that the SpMM modes,
+// which never skip, carry no test per edge.
+template <typename T, bool KEEP>
+__device__ __forceinline__ void edge_src(const Csr& c, int e, int& src,
+                                         float& wt) {
+  const int s = c.idx != nullptr ? c.idx[e] : e;
+  src = min(max(s, 0), c.n_x - 1);
+  wt = c.w != nullptr ? to_float(from_float<T>(c.w[e])) : 1.f;
+  if (KEEP && c.keep[src] == 0) {
+    src = -1;
+    wt = 0.f;
   }
-  src = s;
-  wt = v;
-}
-
-// [lo, hi) of the row indices that `row` may gather: all of them, or in the
-// windowed mode its block's window, cut at x's last row.
-__device__ __forceinline__ int2 row_window(const Csr& c, int row) {
-  if (c.win_base == nullptr) return make_int2(INT_MIN, INT_MAX);
-  const int lo = c.win_base[row / c.block_rows];
-  return make_int2(lo, min(lo + c.window, c.n_x));
 }
 
 // Smallest r in [lo, hi] with rp[r] > v, given rp[hi] > v: a 32-way
@@ -302,11 +290,10 @@ __device__ void zero_empty_rows(T* __restrict__ out, const Csr& c, int k) {
 // columns [c * VEC, (c + 1) * VEC) of the current G * VEC-wide column tile,
 // and the groups meet by shuffles.  All loop bounds are uniform across the
 // warp, so every shuffle runs with the full mask.
-template <typename T, int VEC, bool REUSE>
+template <typename T, int VEC, bool REUSE, bool KEEP>
 __device__ __forceinline__ void slice_sum(const T* __restrict__ x,
                                           const Csr& c, int start, int end,
-                                          int G, int2 win,
-                                          T* __restrict__ out_row,
+                                          int G, T* __restrict__ out_row,
                                           float* __restrict__ slot) {
   const int lane = lane_id();
   const int groups = kWarp / G;
@@ -327,7 +314,7 @@ __device__ __forceinline__ void slice_sum(const T* __restrict__ x,
       const int e = base + lane;
       int my_src = -1;
       float my_w = 0.f;
-      if (e < end) edge_src<T>(c, e, win, my_src, my_w);
+      if (e < end) edge_src<T, KEEP>(c, e, my_src, my_w);
       const int n = min(kWarp, end - base);
 #pragma unroll 4
       for (int j0 = 0; j0 < n; j0 += groups) {
@@ -377,7 +364,7 @@ __device__ __forceinline__ void slice_sum(const T* __restrict__ x,
 // [0, kf] for its head and its tails sit in slots [1, kf + 1 .. kl]: the
 // warps store their pieces there and the last to arrive adds them in
 // chunk order.
-template <typename T, int VEC>
+template <typename T, int VEC, bool KEEP>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     csr_wide_kernel(const T* __restrict__ x, T* __restrict__ out, Csr c,
                     int G) {
@@ -402,15 +389,15 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     rs = rp[row];
     re = rp[row + 1];
     if (re - rs <= S) {
-      slice_sum<T, VEC, false>(x, c, rs, re, G, row_window(c, row),
-                        out + static_cast<size_t>(row) * c.F, nullptr);
+      slice_sum<T, VEC, false, KEEP>(x, c, rs, re, G,
+                               out + static_cast<size_t>(row) * c.F, nullptr);
       return;
     }
     start = rs;
     end = rs + S;
     slot = c.part + static_cast<size_t>((rs - base) / S) * c.F;
   }
-  slice_sum<T, VEC, true>(x, c, start, end, G, row_window(c, row), nullptr, slot);
+  slice_sum<T, VEC, true, KEEP>(x, c, start, end, G, nullptr, slot);
   const int kf = (rs - base) / S, kl = (re - 1 - base) / S;
   if (arrive(c.counters + kf, kl - kf + 1))
     finish_row<T>(c, kf, kl, out + static_cast<size_t>(row) * c.F);
@@ -437,7 +424,7 @@ __device__ __forceinline__ int last_at_or_below(const int32_t* __restrict__ rp,
 // by row, which finishes rows that cross lanes inside the range; the
 // pieces of the rows that cross p0 or p1 go to their slots, as in the
 // wide mode.
-template <typename T, int NF>
+template <typename T, int NF, bool KEEP>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     csr_narrow_kernel(const T* __restrict__ x, T* __restrict__ out, Csr c) {
   constexpr int L = kNarrowEdgesPerLane;
@@ -474,14 +461,15 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
   for (int j = 0; j < L; ++j) {
     src[j] = 0;
     wt[j] = 0.f;
-    if (lo + j < hi) edge_src<T>(c, lo + j, make_int2(INT_MIN, INT_MAX), src[j], wt[j]);
+    if (lo + j < hi) edge_src<T, KEEP>(c, lo + j, src[j], wt[j]);
   }
   float v[L][NF];
 #pragma unroll
   for (int j = 0; j < L; ++j)
 #pragma unroll
     for (int f = 0; f < NF; ++f)
-      v[j][f] = lo + j < hi ? to_float(x[static_cast<size_t>(src[j]) * NF + f]) : 0.f;
+      v[j][f] = lo + j < hi && src[j] >= 0
+                    ? to_float(x[static_cast<size_t>(src[j]) * NF + f]) : 0.f;
 
   float acc[NF], head[NF];
 #pragma unroll
@@ -574,36 +562,6 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
   }
 }
 
-// The windowed mode's window starts, as banded_sorted_spmm_pallas computes
-// them: receiver block b (rows [b * block_rows, (b + 1) * block_rows)) owns
-// edges [row_ptr[b * block_rows], row_ptr[(b + 1) * block_rows]) (block 0
-// from edge 0); its start is the smallest of their senders (n_pad when it
-// has none) rounded down to a multiple of 8 and clipped to
-// [0, max(n_pad - window, 0)].  One thread block per receiver block.
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-    band_base_kernel(const int32_t* __restrict__ idx,
-                     const int32_t* __restrict__ row_ptr,
-                     int32_t* __restrict__ win_base, int block_rows,
-                     int n_edges, int n_pad, int window) {
-  __shared__ int warp_min[kWarpsPerBlock];
-  const int b = blockIdx.x;
-  const int lo = b == 0 ? 0 : min(row_ptr[b * block_rows], n_edges);
-  const int hi = min(row_ptr[(b + 1) * block_rows], n_edges);
-  int m = n_pad;
-  for (int e = lo + static_cast<int>(threadIdx.x); e < hi; e += blockDim.x)
-    m = min(m, idx[e]);
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    m = min(m, __shfl_xor_sync(kFull, m, off));
-  if ((threadIdx.x & (kWarp - 1)) == 0) warp_min[threadIdx.x / kWarp] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 1; k < kWarpsPerBlock; ++k) m = min(m, warp_min[k]);
-    m = min(m, warp_min[0]);
-    const int floor8 = (m >= 0 ? m / 8 : -((-m + 7) / 8)) * 8;
-    win_base[b] = min(max(floor8, 0), max(n_pad - window, 0));
-  }
-}
-
 // Widest vector (at most 16 bytes) that divides F and both base pointers'
 // alignment.
 template <typename T>
@@ -617,50 +575,48 @@ int pick_vec(const void* x, const void* out, int F) {
   return 1;
 }
 
-bool narrow_mode(int F, bool windowed) { return F <= kNarrowMaxF && !windowed; }
+bool narrow_mode(int F) { return F <= kNarrowMaxF; }
 
-int edges_per_range(int F, bool windowed, int S) {
-  return narrow_mode(F, windowed) ? kNarrowRange : S;
-}
+int edges_per_range(int F, int S) { return narrow_mode(F) ? kNarrowRange : S; }
 
-int ranges_for(int n_edges, int F, bool windowed, int S) {
-  return n_edges / edges_per_range(F, windowed, S) + 1;
+int ranges_for(int n_edges, int F, int S) {
+  return n_edges / edges_per_range(F, S) + 1;
 }
 
 int blocks_for(int n_ranges) {
   return (n_ranges + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool KEEP>
 void launch_wide(const void* x, void* out, const Csr& c, cudaStream_t stream) {
   const int chunks = c.F / VEC;
   int G = 1;
   while (G < chunks && G < kWarp) G *= 2;
   const long long warps = static_cast<long long>(c.n_ranges) + c.num_rows;
   const int blocks = static_cast<int>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  csr_wide_kernel<T, VEC><<<blocks, kWarp * kWarpsPerBlock, 0, stream>>>(
+  csr_wide_kernel<T, VEC, KEEP><<<blocks, kWarp * kWarpsPerBlock, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), c, G);
 }
 
-template <typename T>
+template <typename T, bool KEEP>
 void dispatch(const void* x, void* out, const Csr& c, cudaStream_t stream) {
   const dim3 grid(blocks_for(c.n_ranges)), block(kWarp * kWarpsPerBlock);
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  if (narrow_mode(c.F, c.win_base != nullptr)) {
+  if (narrow_mode(c.F)) {
     switch (c.F) {
-      case 1: csr_narrow_kernel<T, 1><<<grid, block, 0, stream>>>(xt, ot, c); break;
-      case 2: csr_narrow_kernel<T, 2><<<grid, block, 0, stream>>>(xt, ot, c); break;
-      case 3: csr_narrow_kernel<T, 3><<<grid, block, 0, stream>>>(xt, ot, c); break;
-      default: csr_narrow_kernel<T, 4><<<grid, block, 0, stream>>>(xt, ot, c); break;
+      case 1: csr_narrow_kernel<T, 1, KEEP><<<grid, block, 0, stream>>>(xt, ot, c); break;
+      case 2: csr_narrow_kernel<T, 2, KEEP><<<grid, block, 0, stream>>>(xt, ot, c); break;
+      case 3: csr_narrow_kernel<T, 3, KEEP><<<grid, block, 0, stream>>>(xt, ot, c); break;
+      default: csr_narrow_kernel<T, 4, KEEP><<<grid, block, 0, stream>>>(xt, ot, c); break;
     }
     return;
   }
   switch (pick_vec<T>(x, out, c.F)) {
-    case 8: launch_wide<T, 8>(x, out, c, stream); break;
-    case 4: launch_wide<T, 4>(x, out, c, stream); break;
-    case 2: launch_wide<T, 2>(x, out, c, stream); break;
-    default: launch_wide<T, 1>(x, out, c, stream);
+    case 8: launch_wide<T, 8, KEEP>(x, out, c, stream); break;
+    case 4: launch_wide<T, 4, KEEP>(x, out, c, stream); break;
+    case 2: launch_wide<T, 2, KEEP>(x, out, c, stream); break;
+    default: launch_wide<T, 1, KEEP>(x, out, c, stream);
   }
 }
 
@@ -670,48 +626,38 @@ extern "C" {
 
 // Edge chunks of one call: part must hold 2 * chunks * F floats and
 // counters `chunks` int32 zeros.  S: the wide mode's most edges a warp.
-int tgp_csr_ranges(int n_edges, int F, int windowed, int S) {
-  return ranges_for(n_edges, F, windowed != 0, S);
+int tgp_csr_ranges(int n_edges, int F, int S) {
+  return ranges_for(n_edges, F, S);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x and out).  idx and w may be null.
-// win_base: null, or the windowed mode's int32 [num_rows / block_rows]
-// window starts, written here before the product (then idx and w are
-// required, num_rows is a multiple of block_rows, and n_x is x's rows).
-// n_edges: idx's length (x's rows without idx), at least row_ptr[num_rows].
-// part: f32 [2, n_ranges, F] scratch; counters: int32 [n_ranges], zero on
-// entry and left zero; n_ranges = tgp_csr_ranges(n_edges, F, win_base !=
-// null, S).  Returns the first CUDA error (0 = cudaSuccess).
+// dtype: 0 = float32, 1 = bfloat16 (x and out).  idx, w and keep (uint8
+// [n_x]) may be null.  n_x: x's rows; n_edges: idx's length (x's rows without idx), at least
+// row_ptr[num_rows].  part: f32 [2, n_ranges, F] scratch; counters: int32
+// [n_ranges], zero on entry and left zero; n_ranges = tgp_csr_ranges(
+// n_edges, F, S).  Returns the first CUDA error (0 = cudaSuccess).
 int tgp_csr_spmm(const void* x, const void* idx, const void* w,
-                 const void* row_ptr, void* win_base, int window,
-                 int block_rows, int n_x, int n_edges, void* part,
-                 void* counters, void* out, int num_rows, int F, int S,
-                 int n_ranges, int dtype, void* stream) {
-  const bool windowed = win_base != nullptr;
+                 const void* keep, const void* row_ptr, int n_x, int n_edges,
+                 void* part, void* counters, void* out, int num_rows, int F,
+                 int S, int n_ranges, int dtype, void* stream) {
   if (num_rows <= 0 || F <= 0 || S <= 0 || n_x <= 0 || n_edges < 0 ||
-      n_ranges != ranges_for(n_edges, F, windowed, S))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (windowed && (idx == nullptr || w == nullptr || window <= 0 ||
-                   block_rows <= 0 || num_rows % block_rows != 0))
+      n_ranges != ranges_for(n_edges, F, S))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Csr c{static_cast<const int32_t*>(idx), static_cast<const float*>(w),
-              static_cast<const int32_t*>(row_ptr),
-              static_cast<const int32_t*>(win_base), window, block_rows, n_x,
+              static_cast<const uint8_t*>(keep),
+              static_cast<const int32_t*>(row_ptr), n_x,
               static_cast<float*>(part), static_cast<int32_t*>(counters),
-              num_rows, F, edges_per_range(F, windowed, S), n_ranges};
-  if (windowed) {
-    band_base_kernel<<<num_rows / block_rows, kWarp * kWarpsPerBlock, 0, s>>>(
-        static_cast<const int32_t*>(idx), static_cast<const int32_t*>(row_ptr),
-        static_cast<int32_t*>(win_base), block_rows, n_edges,
-        max(n_x, window), window);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+              num_rows, F, edges_per_range(F, S), n_ranges};
   if (dtype == 0) {
-    dispatch<float>(x, out, c, s);
+    if (keep)
+      dispatch<float, true>(x, out, c, s);
+    else
+      dispatch<float, false>(x, out, c, s);
   } else if (dtype == 1) {
-    dispatch<__nv_bfloat16>(x, out, c, s);
+    if (keep)
+      dispatch<__nv_bfloat16, true>(x, out, c, s);
+    else
+      dispatch<__nv_bfloat16, false>(x, out, c, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

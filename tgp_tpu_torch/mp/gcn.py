@@ -228,9 +228,11 @@ class GCNConv(nn.Module):
         return out
 
     def _sorted(self, batch: GraphBatch, h: Tensor) -> Tensor:
-        """Receiver-sorted batch without CSR metadata: normalized messages
-        through the sorted segment-sum kernel."""
-        from tgp_tpu_torch.ops.kernels.segment_spmm import segment_sum_sorted
+        """Receiver-sorted batch without CSR metadata: the degree and the
+        normalized messages through the sorted segment-sum kernel (K2), in
+        a fixed order, over one set of offsets."""
+        from tgp_tpu_torch.ops.kernels.segment_spmm import (build_row_ptr,
+                                                            segment_sum_sorted)
 
         N = batch.num_nodes
         s, r = batch.senders.long(), batch.receivers.long()
@@ -238,13 +240,19 @@ class GCNConv(nn.Module):
         if batch.node_mask_shrunk:
             nm = batch.node_mask
             w = w * (nm[s] & nm[r])
-        deg = segment_sum(w.abs(), r, N)
+        # one set of offsets for both sums; as segment_sum does, receivers
+        # outside [0, N) add nothing (those in [N, rows_pad) land in rows
+        # past N, the rest are not counted)
+        row_ptr = build_row_ptr(batch.receivers, N)
+        deg = segment_sum_sorted(w.abs().to(torch.float32)[:, None].contiguous(),
+                                 batch.receivers, N, row_ptr)[:, 0]
         if self.add_self_loops:
             unit = _unit_loops(batch).to(deg.dtype)
             deg = deg + unit
         dinv = _dinv(deg)
         msgs = h[s] * (w * dinv[s] * dinv[r])[:, None]
-        out = segment_sum_sorted(msgs.contiguous(), batch.receivers, N)
+        out = segment_sum_sorted(msgs.contiguous(), batch.receivers, N,
+                                 row_ptr)
         if self.add_self_loops:
             out = out + h * (dinv * dinv * unit)[:, None]
         return out

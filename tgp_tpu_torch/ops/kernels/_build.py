@@ -22,7 +22,7 @@ __all__ = ["SOURCES", "build_all", "load"]
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 #: one shared library per CUDA source
-SOURCES = ("segment_spmm", "bmm", "sddmm")
+SOURCES = ("segment_spmm", "segment_reduce", "banded_spmm", "bmm", "sddmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,7 @@
-"""Sorted-CSR SpMM and segment-sums: one hand-written CUDA kernel
-(``tgp_tpu_torch/csrc/segment_spmm.cu``) behind four wrappers, each with
-its plain PyTorch version beside it.  Each replaces kernels of
+"""Sorted-CSR SpMM and segment-sums: three hand-written CUDA kernels
+(``tgp_tpu_torch/csrc/segment_spmm.cu``, ``segment_reduce.cu`` and
+``banded_spmm.cu``) behind five wrappers, each with its plain PyTorch
+version beside it.  Each replaces kernels of
 ``tgp_tpu/ops/pallas/segment_spmm.py``:
 
 * :func:`spmm_csr` — ``_grouped_kernel_w`` (K1, run by ``spmm_csr`` →
@@ -14,15 +15,26 @@ its plain PyTorch version beside it.  Each replaces kernels of
 * :func:`sorted_segment_sum` — ``_kernel`` / ``sorted_segment_sum_pallas``
   (K4), K2's function read from ``row_ptr`` alone (edges past
   ``row_ptr[num_rows]`` are never read), the same gather gradient; behind
-  :func:`spmm_sorted` (gather, weight, K4).  The TPU kernel's tiling
-  arguments (``block_rows``, ``block_edges``, ``precision``,
+  :func:`spmm_sorted` (gather, weight, K4).  It has two routes, picked by
+  :func:`segment_route` from the shapes alone: ``"long"``
+  (``segment_reduce.cu``: the edge range cut into chunks that fill the
+  card, 8 row loads a thread in flight, a two-level finish of split rows)
+  where the segments are long, as in the sparse readout, and ``"wide"``
+  (``segment_spmm.cu``'s warp-per-row mode) elsewhere.
+  :func:`gather_segment_sum` is the readout's entry to K4, on the route
+  the same rule picks: either kernel reads the rows through the readout's
+  sort order and skips masked ones, so no sorted, masked copy is written.  The TPU kernel's
+  tiling arguments (``block_rows``, ``block_edges``, ``precision``,
   ``interpret``) and its padding of F to 128 lanes have no counterpart:
-  the kernel takes any row count and width.
+  the kernels take any row count and width.
 * :func:`banded_sorted_spmm` — ``_banded_kernel`` /
-  ``banded_sorted_spmm_pallas`` (K5), the kernel's windowed mode: each
+  ``banded_sorted_spmm_pallas`` (K5, ``banded_spmm.cu``): each
   ``block_rows``-row receiver block gathers only senders inside its
-  window of x, weights rounded to x's dtype; behind :func:`spmm_banded`,
-  whose gradient is the JAX package's plain scatter.
+  window of x, weights rounded to x's dtype; a block of threads slides a
+  shared-memory ring of x's rows over its run of windows.  Its route
+  (:func:`banded_route`: 16-byte or element copies) follows x's row width
+  and alignment.  Behind :func:`spmm_banded`, whose gradient is the JAX
+  package's plain scatter.
 
 All accumulate in f32 and return ``x.dtype`` (f32 or bf16), take any width
 F (F = 1 included), round each weight to ``x.dtype`` before its product
@@ -34,22 +46,27 @@ the card's flop/byte balance, so the least time is idx + w + row_ptr +
 one read of x + one write of out over the memory rate; the E·F gathered
 elements come from L2 while x fits in its 50 MB.  The TPU kernels wrote
 the gathered ``[E, F]`` rows to device memory (or gathered from a VMEM
-window with one-hot matmuls) and summed them with one-hot matmuls; the
-CUDA kernel gathers each row straight into registers, so those rows
-never exist.  A warp sums a row of at most ``EDGES_PER_ITEM`` edges;
+window with one-hot matmuls) and summed them with one-hot matmuls;
+``segment_spmm.cu`` gathers each row straight into registers, so those
+rows never exist, and ``banded_spmm.cu`` reads them from its ring of x's
+rows in shared memory.  In ``segment_spmm.cu`` a warp sums a row of at
+most ``EDGES_PER_ITEM`` edges;
 a longer row (the collator's padding makes row 0 one) is split into
 chunks of that many, summed by warps that come first in the grid.  Rows
 of F ≤ 4 take a narrow mode: each warp owns 256 consecutive edges, each
 lane 8, and a segmented scan joins rows across lanes.  A split row is
 finished from its chunks' partial sums in chunk order, without float
-atomics: two runs on the same inputs give the same bits.  The kernel's
-scratch (partial sums and self-resetting counters) is kept per stream,
-so a call allocates only its output.
+atomics: two runs on the same inputs give the same bits (every kernel
+here).  The scratch of ``segment_spmm.cu`` and ``segment_reduce.cu``
+(partial sums and self-resetting counters) is kept per stream, so a call
+allocates only its output.
 
 Dispatch is by where the tensors lie: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises — there is no
 fallback.  Each wrapper counts its launches, the backward's included, in
-``<wrapper>.launches``.
+``<wrapper>.launches``; ``sorted_segment_sum.launches_by_route`` and
+``banded_sorted_spmm.launches_by_route`` count them by route
+(:func:`gather_segment_sum`'s on ``sorted_segment_sum``'s).
 """
 
 from __future__ import annotations
@@ -63,14 +80,52 @@ import torch
 
 __all__ = ["spmm_csr", "spmm_csr_plain", "segment_sum_sorted",
            "segment_sum_sorted_plain", "sorted_segment_sum",
-           "sorted_segment_sum_plain", "spmm_sorted", "banded_sorted_spmm",
-           "banded_sorted_spmm_plain", "spmm_banded", "check_band_contract",
-           "sort_edges_csr", "build_row_ptr"]
+           "sorted_segment_sum_plain", "segment_route", "gather_segment_sum",
+           "gather_segment_sum_plain", "spmm_sorted", "banded_sorted_spmm",
+           "banded_sorted_spmm_plain", "banded_route", "spmm_banded",
+           "check_band_contract", "sort_edges_csr", "build_row_ptr"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: most edges of one row that one warp sums in the kernel's wide mode
-#: (F > 4 or windowed): longer rows are split into chunks of this many
+#: most edges of one row that one warp sums in ``segment_spmm.cu``'s wide
+#: mode (F > 4): longer rows are split into chunks of this many
 EDGES_PER_ITEM = 256
+#: widest row of ``segment_spmm.cu``'s narrow mode (edge-balanced already)
+NARROW_MAX_F = 4
+#: K4's routes (:func:`segment_route`)
+SEGMENT_ROUTES = ("long", "wide")
+#: ``"long"``'s shapes: segments of at least this many positions on
+#: average, and at most this many segments (``segment_reduce.cu`` walks a
+#: chunk's rows one after another); both where the routes cross on an
+#: H100 (``scripts/ab_k4_k5.py routes``)
+LONG_MIN_POSITIONS, LONG_MAX_SEGMENTS = 32, 1024
+#: K5's routes (:func:`banded_route`)
+BANDED_ROUTES = ("vector", "element")
+#: most rows of a receiver block that ``banded_spmm.cu`` stages
+MAX_BLOCK_ROWS = 1024
+
+
+def segment_route(num_rows: int, n_edges: int, F: int) -> str:
+    """K4's route for ``num_rows`` segments over ``n_edges`` positions of
+    width ``F``: ``"long"`` (``segment_reduce.cu``) for at most
+    ``LONG_MAX_SEGMENTS`` segments of at least ``LONG_MIN_POSITIONS``
+    positions on average, rows wider than the narrow mode's; else
+    ``"wide"`` (``segment_spmm.cu``, a warp a row).  The sparse readout of
+    one graph of 65,536 rows, of 64 graphs of 256 or of 512 graphs of 32
+    takes ``"long"``; a readout of 1,024 graphs of 18 rows or of 4,096 of
+    64, and a banded ``spmm_sorted`` (65,536 rows of 16 edges), take
+    ``"wide"``."""
+    return ("long" if F > NARROW_MAX_F and num_rows <= LONG_MAX_SEGMENTS
+            and n_edges >= LONG_MIN_POSITIONS * max(num_rows, 1)
+            else "wide")
+
+
+def banded_route(x: torch.Tensor) -> str:
+    """K5's route for ``x [N, F]``: ``"vector"`` (16-byte copies and loads)
+    when its rows are a multiple of 16 bytes and its base 16-byte aligned,
+    else ``"element"``."""
+    aligned = (x.shape[1] * x.element_size()) % 16 == 0 and \
+        x.data_ptr() % 16 == 0
+    return "vector" if aligned else "element"
 
 
 def build_row_ptr(receivers_sorted: torch.Tensor, num_rows: int,
@@ -175,6 +230,16 @@ def sorted_segment_sum_plain(msgs: torch.Tensor,
     return _csr_sum_plain(msgs, None, None, row_ptr, num_rows)
 
 
+def gather_segment_sum_plain(x: torch.Tensor, perm: torch.Tensor,
+                             keep: torch.Tensor, row_ptr: torch.Tensor,
+                             num_rows: int) -> torch.Tensor:
+    """Plain PyTorch :func:`gather_segment_sum`: the rows of ``x`` whose
+    ``keep`` is False replaced by zeros (a select, so a NaN there is not
+    added), put in the order ``perm``, summed by ``row_ptr``."""
+    rows = torch.where(keep[:, None], x, 0.0).index_select(0, perm.long())
+    return _csr_sum_plain(rows, None, None, row_ptr, num_rows)
+
+
 def banded_sorted_spmm_plain(x: torch.Tensor, senders_sorted: torch.Tensor,
                              row_ptr: torch.Tensor, w_sorted: torch.Tensor,
                              num_rows: int, *, window: int = 512,
@@ -191,18 +256,32 @@ def banded_sorted_spmm_plain(x: torch.Tensor, senders_sorted: torch.Tensor,
 
 
 @functools.cache
-def _lib():
+def _lib(name):
+    """The built library of ``csrc/<name>.cu`` with its C functions typed."""
     from tgp_tpu_torch.ops.kernels._build import load
 
-    lib = load("segment_spmm")
-    lib.tgp_csr_spmm.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.tgp_csr_spmm.restype = ctypes.c_int
-    lib.tgp_csr_ranges.argtypes = [ctypes.c_int] * 4
-    lib.tgp_csr_ranges.restype = ctypes.c_int
-    lib.tgp_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.tgp_cuda_error_string.restype = ctypes.c_char_p
+    lib = load(name)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    if name == "segment_spmm":
+        lib.tgp_csr_spmm.argtypes = ([vp] * 5 + [i32] * 2 + [vp] * 3
+                                     + [i32] * 5 + [vp])
+        lib.tgp_csr_ranges.argtypes = [i32] * 3
+        lib.tgp_csr_ranges.restype = i32
+        lib.tgp_cuda_error_string.argtypes = [i32]
+        lib.tgp_cuda_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.tgp_cuda_error_string
+    elif name == "segment_reduce":
+        lib.tgp_segment_reduce.argtypes = [vp] * 7 + [i32] * 6 + [vp]
+        lib.tgp_segment_reduce_chunks.argtypes = [vp] * 2 + [i32] * 3
+        lib.tgp_segment_reduce_chunks.restype = i32
+        lib.tgp_segment_reduce_error_string.argtypes = [i32]
+        lib.tgp_segment_reduce_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.tgp_segment_reduce_error_string
+    else:
+        lib.tgp_banded_spmm.argtypes = [vp] * 5 + [i32] * 8 + [vp]
+        lib.tgp_banded_spmm_error_string.argtypes = [i32]
+        lib.tgp_banded_spmm_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.tgp_banded_spmm_error_string
     return lib
 
 
@@ -217,31 +296,7 @@ def _check_vector(name, t, dtype, device, min_len=None):
                          f">= {min_len}")
 
 
-#: (device index, stream) -> (counters, piece slots): the kernel's
-#: scratch, kept per stream so that no memset runs per call (the kernel
-#: leaves its counters at zero)
-_WORKSPACE = {}
-
-
-def _workspace(dev, stream, n_ranges, F):
-    """Zeroed int32 counters for ``n_ranges`` edge chunks and f32 slots
-    for their ``2 · n_ranges · F`` piece sums, grown on demand."""
-    key = (dev.index, stream)
-    counters, part = _WORKSPACE.get(key, (None, None))
-    if counters is None or counters.numel() < n_ranges:
-        counters = torch.zeros(n_ranges, dtype=torch.int32, device=dev)
-    if part is None or part.numel() < 2 * n_ranges * F:
-        part = torch.empty(2 * n_ranges * F, dtype=torch.float32,
-                           device=dev)
-    _WORKSPACE[key] = counters, part
-    return counters, part
-
-
-def _launch_csr(x, idx, w, row_ptr, num_rows, win=None):
-    """Validate, allocate and launch; True if the kernel was launched
-    (the caller counts it).  ``win``: see :func:`_csr_sum_plain`; the
-    kernel computes the window starts itself."""
-    dev = x.device
+def _check_rows(x):
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"kernel takes float32 or bfloat16 x, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
@@ -249,6 +304,39 @@ def _launch_csr(x, idx, w, row_ptr, num_rows, win=None):
                          f"shape {tuple(x.shape)}")
     if x.shape[0] >= 2 ** 31 or x.shape[1] >= 2 ** 31:
         raise ValueError(f"x shape {tuple(x.shape)} exceeds int32 indexing")
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.error_string(err).decode())
+
+
+#: (kernel, device index, stream) -> (counters, slots): a kernel's scratch,
+#: kept per stream so that no memset runs per call (the kernels leave
+#: their counters at zero)
+_WORKSPACE = {}
+
+
+def _workspace(kind, dev, stream, n_counters, n_slots):
+    """Zeroed int32 counters and f32 slots for one launch of ``kind``,
+    grown on demand."""
+    key = (kind, dev.index, stream)
+    counters, part = _WORKSPACE.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=dev)
+    if part is None or part.numel() < n_slots:
+        part = torch.empty(n_slots, dtype=torch.float32, device=dev)
+    _WORKSPACE[key] = counters, part
+    return counters, part
+
+
+def _launch_csr(x, idx, w, row_ptr, num_rows, keep=None):
+    """``segment_spmm.cu``: validate, allocate and launch (``keep``: bool
+    ``[N]``, rows flagged False skipped); True if the kernel was launched
+    (the caller counts it)."""
+    dev = x.device
+    _check_rows(x)
     _check_vector("row_ptr", row_ptr, torch.int32, dev, num_rows + 1)
     if idx is not None:
         _check_vector("idx", idx, torch.int32, dev)
@@ -256,10 +344,8 @@ def _launch_csr(x, idx, w, row_ptr, num_rows, win=None):
     n_edges = x.shape[0] if idx is None else idx.shape[0]
     if w is not None:
         _check_vector("w", w, torch.float32, dev, n_edges)
-    window, block_rows = win if win is not None else (0, 0)
-    win_base = (None if win is None else
-                torch.empty(num_rows // block_rows, dtype=torch.int32,
-                            device=dev))
+    if keep is not None:
+        _check_vector("keep", keep, torch.bool, dev, x.shape[0])
     out = torch.empty(num_rows, F, dtype=x.dtype, device=dev)
     if num_rows == 0 or F == 0 or x.shape[0] == 0:
         return out.zero_(), False
@@ -267,32 +353,71 @@ def _launch_csr(x, idx, w, row_ptr, num_rows, win=None):
     if n_edges + max(S, 256) >= 2 ** 31:
         raise ValueError(f"{n_edges} edges exceed the kernel's int32 "
                          "edge positions")
-    lib = _lib()
-    n_ranges = lib.tgp_csr_ranges(n_edges, F, win is not None, S)
+    lib = _lib("segment_spmm")
+    n_ranges = lib.tgp_csr_ranges(n_edges, F, S)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        counters, part = _workspace(dev, stream, n_ranges, F)
+        counters, part = _workspace("csr", dev, stream, n_ranges,
+                                    2 * n_ranges * F)
         err = lib.tgp_csr_spmm(
             x.data_ptr(), None if idx is None else idx.data_ptr(),
-            None if w is None else w.data_ptr(), row_ptr.data_ptr(),
-            None if win_base is None else win_base.data_ptr(), window,
-            block_rows, x.shape[0], n_edges, part.data_ptr(),
-            counters.data_ptr(), out.data_ptr(), num_rows, F, S, n_ranges,
-            _DTYPE_CODE[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError("segment_spmm kernel launch failed: "
-                           + lib.tgp_cuda_error_string(err).decode())
+            None if w is None else w.data_ptr(),
+            None if keep is None else keep.data_ptr(), row_ptr.data_ptr(),
+            x.shape[0], n_edges, part.data_ptr(), counters.data_ptr(),
+            out.data_ptr(), num_rows, F, S, n_ranges, _DTYPE_CODE[x.dtype],
+            stream)
+    _raise_on(lib, err, "segment_spmm")
     return out, True
 
 
-def _csr_sum(x, w, idx, row_ptr, num_rows, counter, win=None):
-    """The kernel on a CUDA tensor (one launch counted on ``counter``), the
-    plain version on a CPU tensor (``win``: see :func:`_csr_sum_plain`)."""
-    if x.device.type == "cpu":
-        return _csr_sum_plain(x, w, idx, row_ptr, num_rows, win)
+def _launch_reduce(x, perm, keep, row_ptr, num_rows):
+    """``segment_reduce.cu`` (K4's ``"long"`` route): validate, allocate and
+    launch; True if the kernel was launched (the caller counts it)."""
+    dev = x.device
+    _check_rows(x)
+    _check_vector("row_ptr", row_ptr, torch.int32, dev, num_rows + 1)
+    n_edges = x.shape[0]
+    if perm is not None:
+        _check_vector("perm", perm, torch.int32, dev)
+        n_edges = perm.shape[0]
+    if keep is not None:
+        _check_vector("keep", keep, torch.bool, dev, x.shape[0])
+    F = x.shape[1]
+    out = torch.empty(num_rows, F, dtype=x.dtype, device=dev)
+    if num_rows == 0 or F == 0 or x.shape[0] == 0:
+        return out.zero_(), False
+    if n_edges >= 2 ** 30:
+        raise ValueError(f"{n_edges} positions exceed the kernel's int32 "
+                         "positions")
+    lib = _lib("segment_reduce")
+    code = _DTYPE_CODE[x.dtype]
+    n_chunks = lib.tgp_segment_reduce_chunks(x.data_ptr(), out.data_ptr(),
+                                             n_edges, F, code)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        counters, part = _workspace("reduce", dev, stream, 3 * n_chunks,
+                                    2 * n_chunks * F)
+        err = lib.tgp_segment_reduce(
+            x.data_ptr(), None if perm is None else perm.data_ptr(),
+            None if keep is None else keep.data_ptr(), row_ptr.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), out.data_ptr(),
+            x.shape[0], n_edges, num_rows, F, n_chunks, code, stream)
+    _raise_on(lib, err, "segment_reduce")
+    return out, True
+
+
+def _on_card(x, name):
     if x.device.type != "cuda":
-        raise ValueError(f"no segment_spmm path for device {x.device}")
-    out, launched = _launch_csr(x, idx, w, row_ptr, num_rows, win)
+        raise ValueError(f"no {name} path for device {x.device}")
+
+
+def _csr_sum(x, w, idx, row_ptr, num_rows, counter):
+    """``segment_spmm.cu`` on a CUDA tensor (one launch counted on
+    ``counter``), the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return _csr_sum_plain(x, w, idx, row_ptr, num_rows)
+    _on_card(x, "segment_spmm")
+    out, launched = _launch_csr(x, idx, w, row_ptr, num_rows)
     counter.launches += launched
     return out
 
@@ -372,20 +497,46 @@ spmm_csr.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _k4_sum(x, perm, keep, row_ptr, num_rows, route):
+    """K4 on ``route``: ``segment_reduce.cu`` (``"long"``) or
+    ``segment_spmm.cu`` (``"wide"``) on a CUDA tensor, reading row
+    ``perm[e]`` for position ``e`` (``e`` itself without ``perm``) and
+    skipping rows whose ``keep`` is False; one launch counted on
+    :func:`sorted_segment_sum`, by route.  The plain version on a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        if perm is None:
+            return _csr_sum_plain(x, None, None, row_ptr, num_rows)
+        return gather_segment_sum_plain(x, perm, keep, row_ptr, num_rows)
+    _on_card(x, "sorted_segment_sum")
+    if route == "long":
+        out, launched = _launch_reduce(x, perm, keep, row_ptr, num_rows)
+    else:
+        out, launched = _launch_csr(x, perm, None, row_ptr, num_rows, keep)
+    sorted_segment_sum.launches += launched
+    sorted_segment_sum.launches_by_route[route] += launched
+    return out
+
+
 class _SortedSum(torch.autograd.Function):
     """Sum of receiver-sorted messages by ``row_ptr``; the gradient is the
-    gather ``g[clip(receivers, 0, num_rows − 1)]`` (``_sss_bwd``)."""
+    gather ``g[clip(receivers, 0, num_rows − 1)]`` (``_sss_bwd``).
+    ``route``: K4's (None for K2's kernel)."""
 
     @staticmethod
-    def forward(ctx, msgs, receivers_sorted, row_ptr, num_rows, counter):
+    def forward(ctx, msgs, receivers_sorted, row_ptr, num_rows, route):
         ctx.num_rows = num_rows
         ctx.save_for_backward(receivers_sorted)
-        return _csr_sum(msgs, None, None, row_ptr, num_rows, counter)
+        if route is None:
+            return _csr_sum(msgs, None, None, row_ptr, num_rows,
+                            segment_sum_sorted)
+        return _k4_sum(msgs, None, None, row_ptr, num_rows, route)
 
     @staticmethod
     def backward(ctx, g):
         (r,) = ctx.saved_tensors
-        return g[r.clamp(0, ctx.num_rows - 1).long()], None, None, None, None
+        return (g[r.clamp(0, ctx.num_rows - 1).long()], None, None, None,
+                None)
 
 
 def segment_sum_sorted(msgs: torch.Tensor, receivers_sorted: torch.Tensor,
@@ -401,8 +552,7 @@ def segment_sum_sorted(msgs: torch.Tensor, receivers_sorted: torch.Tensor,
     elif (row_ptr.shape[0] - 1) % 256 or row_ptr.shape[0] - 1 < num_rows:
         raise ValueError(f"row_ptr of length {row_ptr.shape[0]} does not "
                          f"cover {num_rows} rows padded to 256")
-    return _SortedSum.apply(msgs, receivers_sorted, row_ptr, num_rows,
-                            segment_sum_sorted)
+    return _SortedSum.apply(msgs, receivers_sorted, row_ptr, num_rows, None)
 
 
 segment_sum_sorted.launches = 0
@@ -412,9 +562,10 @@ def sorted_segment_sum(msgs: torch.Tensor, rids: Optional[torch.Tensor],
                        row_ptr: torch.Tensor, num_rows: int) -> torch.Tensor:
     """``out[r] = Σ_{e∈[row_ptr[r], row_ptr[r+1])} msgs[e]`` for receiver-
     sorted ``msgs [E, F]`` → ``[num_rows, F]`` in ``msgs.dtype`` (K4's
-    contract: the kernel reads only ``row_ptr``, so padding edges must sort
+    contract: the kernels read only ``row_ptr``, so padding edges must sort
     past ``row_ptr[num_rows]``; ``rids`` is the receiver of each edge, read
-    only by the gradient, ``g[clip(rids)]``)."""
+    only by the gradient, ``g[clip(rids)]``).  On the card the kernel is
+    :func:`segment_route`'s pick from the shapes."""
     if msgs.dim() != 2:
         raise ValueError(f"msgs must be [E, F], got shape "
                          f"{tuple(msgs.shape)}")
@@ -427,10 +578,48 @@ def sorted_segment_sum(msgs: torch.Tensor, rids: Optional[torch.Tensor],
         rids = torch.zeros(msgs.shape[0], dtype=torch.int32,
                            device=msgs.device)
     return _SortedSum.apply(msgs, rids, row_ptr, num_rows,
-                            sorted_segment_sum)
+                            segment_route(num_rows, *msgs.shape))
 
 
 sorted_segment_sum.launches = 0
+sorted_segment_sum.launches_by_route = dict.fromkeys(SEGMENT_ROUTES, 0)
+
+
+class _GatherSum(torch.autograd.Function):
+    """:func:`gather_segment_sum`; the gradient is the gather
+    ``where(keep, g[ids], 0)``: no float scatter."""
+
+    @staticmethod
+    def forward(ctx, x, perm, keep, ids, row_ptr, num_rows):
+        ctx.save_for_backward(keep, ids)
+        return _k4_sum(x, perm, keep, row_ptr, num_rows,
+                       segment_route(num_rows, perm.shape[0], x.shape[1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        keep, ids = ctx.saved_tensors
+        d_x = torch.where(keep[:, None], g[ids.long()], 0.0)
+        return d_x, None, None, None, None, None
+
+
+def gather_segment_sum(x: torch.Tensor, perm: torch.Tensor,
+                       keep: torch.Tensor, ids: torch.Tensor,
+                       row_ptr: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """``out[r] = Σ_{e∈[row_ptr[r], row_ptr[r+1]), keep[perm[e]]}
+    x[perm[e]]`` → ``[num_rows, F]`` in ``x.dtype``: K4, on the route
+    :func:`segment_route` picks from ``(num_rows, len(perm), F)``, reading
+    the rows of ``x [N, F]`` through the int32 order ``perm`` (a stable
+    sort of ``ids``, the rows' segments in ``[0, num_rows)``) and skipping
+    rows whose bool ``keep`` is False, so a NaN there never reaches a
+    sum.  The gradient is ``where(keep, g[ids], 0)``.  The sparse
+    readout's sum (``reduce/global_reduce.py``)."""
+    if x.dim() != 2 or perm.shape[0] > x.shape[0]:
+        raise ValueError(f"x must be [N, F] with N >= perm's length, got "
+                         f"{tuple(x.shape)} and {tuple(perm.shape)}")
+    if row_ptr.dim() != 1 or row_ptr.shape[0] < num_rows + 1:
+        raise ValueError(f"row_ptr of shape {tuple(row_ptr.shape)} needs "
+                         f"num_rows + 1 = {num_rows + 1} entries")
+    return _GatherSum.apply(x, perm, keep, ids, row_ptr, num_rows)
 
 
 def spmm_sorted(senders_sorted: torch.Tensor, rids_sorted: torch.Tensor,
@@ -461,6 +650,37 @@ def _check_band_args(x, row_ptr, num_rows, window, block_rows):
                          f"num_rows + 1 = {num_rows + 1} entries")
 
 
+def _launch_banded(x, senders, row_ptr, w, num_rows, window, block_rows):
+    """``banded_spmm.cu``: validate, allocate and launch on
+    :func:`banded_route`'s route; the route, or None when nothing was
+    launched."""
+    dev = x.device
+    _check_rows(x)
+    _check_vector("senders_sorted", senders, torch.int32, dev)
+    _check_vector("w_sorted", w, torch.float32, dev, senders.shape[0])
+    _check_vector("row_ptr", row_ptr, torch.int32, dev, num_rows + 1)
+    if block_rows > MAX_BLOCK_ROWS:
+        raise ValueError(f"block_rows {block_rows} exceeds the kernel's "
+                         f"{MAX_BLOCK_ROWS}")
+    if senders.shape[0] >= 2 ** 31 - 4096:
+        raise ValueError(f"{senders.shape[0]} edges exceed the kernel's "
+                         "int32 positions")
+    F = x.shape[1]
+    out = torch.empty(num_rows, F, dtype=x.dtype, device=dev)
+    if num_rows == 0 or F == 0 or x.shape[0] == 0:
+        return out.zero_(), None
+    chosen = banded_route(x)
+    lib = _lib("banded_spmm")
+    with torch.cuda.device(dev):
+        err = lib.tgp_banded_spmm(
+            x.data_ptr(), senders.data_ptr(), w.data_ptr(),
+            row_ptr.data_ptr(), out.data_ptr(), x.shape[0], senders.shape[0],
+            num_rows, F, window, block_rows, _DTYPE_CODE[x.dtype],
+            int(chosen == "vector"), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, f"banded_spmm ({chosen} route)")
+    return out, chosen
+
+
 def banded_sorted_spmm(x: torch.Tensor, senders_sorted: torch.Tensor,
                        row_ptr: torch.Tensor, w_sorted: torch.Tensor,
                        num_rows: int, *, window: int = 512,
@@ -475,12 +695,23 @@ def banded_sorted_spmm(x: torch.Tensor, senders_sorted: torch.Tensor,
     before the product; the sum is f32, the output ``[num_rows, F]`` in
     ``x.dtype``.  No gradient (see :func:`spmm_banded`)."""
     _check_band_args(x, row_ptr, num_rows, window, block_rows)
-    return _csr_sum(x, w_sorted.to(torch.float32).contiguous(),
-                    senders_sorted.to(torch.int32).contiguous(), row_ptr,
-                    num_rows, banded_sorted_spmm, (window, block_rows))
+    if x.device.type == "cpu":
+        return banded_sorted_spmm_plain(x, senders_sorted, row_ptr, w_sorted,
+                                        num_rows, window=window,
+                                        block_rows=block_rows)
+    _on_card(x, "banded_spmm")
+    out, chosen = _launch_banded(
+        x, senders_sorted.to(torch.int32).contiguous(), row_ptr,
+        w_sorted.to(torch.float32).contiguous(), num_rows, window,
+        block_rows)
+    if chosen is not None:
+        banded_sorted_spmm.launches += 1
+        banded_sorted_spmm.launches_by_route[chosen] += 1
+    return out
 
 
 banded_sorted_spmm.launches = 0
+banded_sorted_spmm.launches_by_route = dict.fromkeys(BANDED_ROUTES, 0)
 
 
 class _BandedSpmm(torch.autograd.Function):

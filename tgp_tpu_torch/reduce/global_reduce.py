@@ -2,10 +2,12 @@
 sparse ``[N,F]`` + ``node_graph`` or dense ``[B,N,F]`` + mask → ``[B,F]``.
 
 The sparse ``sum`` and ``mean`` add in a fixed order, as
-``jax.ops.segment_sum`` does: the rows are put in graph order by a stable
-sort of the (clipped) graph ids, and K4's ``sorted_segment_sum`` sums each
-graph's run of rows from per-graph offsets (a CUDA kernel on the card, its
-plain version on the CPU).  Every batch type takes this one route: the
+``jax.ops.segment_sum`` does: a stable sort of the (clipped) graph ids
+gives the rows' graph order, and K4's ``gather_segment_sum`` sums each
+graph's run of rows from per-graph offsets, reading the rows through that
+order and skipping masked ones (a CUDA kernel on the card, its plain
+version on the CPU; no sorted, masked copy of the rows is written).  Every
+batch type takes this one route: the
 batches of ``from_graphs`` (padding nodes in the last graph), masked pooling
 (which keeps them) and compact pooling (``cluster_graph = arange // kmax``)
 all hold ascending ids, whose stable sort is the identity; any other ids
@@ -18,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from tgp_tpu_torch.ops.kernels.segment_spmm import sorted_segment_sum
+from tgp_tpu_torch.ops.kernels.segment_spmm import gather_segment_sum
 from tgp_tpu_torch.ops.segment import (segment_count, segment_max,
                                        segment_min, segment_sum)
 
@@ -27,44 +29,26 @@ __all__ = ["global_reduce"]
 Tensor = torch.Tensor
 
 
-class _Permute(torch.autograd.Function):
-    """``x``'s rows in the order ``perm`` (a permutation); the gradient is
-    the gather by the inverse permutation, not a float scatter."""
-
-    @staticmethod
-    def forward(ctx, x, perm):
-        ctx.save_for_backward(perm)
-        return x.index_select(0, perm)
-
-    @staticmethod
-    def backward(ctx, g):
-        (perm,) = ctx.saved_tensors
-        inv = torch.empty_like(perm).scatter_(
-            0, perm, torch.arange(perm.shape[0], device=perm.device))
-        return g.index_select(0, inv), None
-
-
 def _graph_sum(x: Tensor, node_graph: Tensor, num_graphs: int,
                mask: Optional[Tensor]) -> Tensor:
     """``segment_sum``'s function in a fixed order: rows masked or with an
-    id outside ``[0, num_graphs)`` are zeroed, the rest stably sorted by
-    graph and summed by K4 over per-graph offsets (built on the device by
-    ``searchsorted``, no host sync).  K4 takes f32 and bf16 rows; other
-    dtypes keep ``segment_sum``."""
+    id outside ``[0, num_graphs)`` are skipped, the rest summed by K4 in
+    the order of a stable sort by graph, over per-graph offsets (built on
+    the device by ``searchsorted``, no host sync).  K4 takes f32 and bf16
+    rows; other dtypes keep ``segment_sum``."""
     if x.dtype not in (torch.float32, torch.bfloat16) or num_graphs == 0:
         return segment_sum(x, node_graph, num_graphs, mask=mask)
     ids = node_graph.to(torch.int64)
     keep = (ids >= 0) & (ids < num_graphs)
     if mask is not None:
         keep = keep & mask
-    rows = x.reshape(x.shape[0], -1)
-    rows = torch.where(keep[:, None], rows, 0.0)
-    rids, perm = torch.sort(ids.clamp(0, num_graphs - 1).to(torch.int32),
-                            stable=True)
+    cids = ids.clamp(0, num_graphs - 1).to(torch.int32)
+    rids, perm = torch.sort(cids, stable=True)
     row_ptr = torch.searchsorted(
         rids, torch.arange(num_graphs + 1, dtype=torch.int32,
                            device=x.device), out_int32=True)
-    out = sorted_segment_sum(_Permute.apply(rows, perm), rids, row_ptr,
+    out = gather_segment_sum(x.reshape(x.shape[0], -1).contiguous(),
+                             perm.to(torch.int32), keep, cids, row_ptr,
                              num_graphs)
     return out.reshape((num_graphs,) + x.shape[1:])
 
