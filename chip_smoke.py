@@ -66,14 +66,26 @@ each of which raises on failure:
    2 backward) and the readout's K4 once (``"long"``), and step one's
    loss and gradients are held against the same model and graph on the
    CPU;
-8. the locality path on the union of the dense graphs (16,384 nodes):
+8. SAG served and trained at the serving width: ``[serving_sag]`` is
+   ``[serving]`` with ``get_pooler("sag")`` (its GraphConv scorer's
+   ``A X`` one more K1 launch a request, asserted alone first), logits
+   held to the CPU and a repeated request bit-equal; ``[train_sag]`` is
+   ``[train_sparse]`` with the SAG model for 5 steps (K1 7 times a step);
+9. ASAP and PAN: 5 Adam steps each (f32) through the example twins'
+   models (``examples/classification_torch.py``'s ``PoolingClassifier``
+   with ASAP, ``examples/classification_pan_torch.py``'s ``PANNet``) on
+   the dense cell's 64 graphs collated sparse by ``GraphLoader`` (below
+   ``PALLAS_MIN_EDGES``: the readout's K4 once a step, no K1), step one
+   held against the CPU;
+10. the locality path on the union of the dense graphs (16,384 nodes):
    ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
    engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
    ``sddmm_banded`` (K6) on the same plan, each held against the plain
    product of the graph in its own order.
 
 Every ``[kernels]`` row carries the card's ``nvidia-smi`` name and power
-limit.  The next-to-last line of output is a JSON object ``{"kernels":
+limit; the kernels line counts K1's launches in sparse training and SAG's
+serving and training, K4's there and in ASAP's and PAN's steps.  The next-to-last line of output is a JSON object ``{"kernels":
 [...]}``; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the rest of the repository, it exits non-zero and prints no
 result.
@@ -125,6 +137,14 @@ BAND_NODES, BAND_EDGES, BAND_BW = 65_536, 1_048_576, 448
 SMALL_BATCHES = ((512, 32), (1024, 18))
 # sparse training: bench.py::bench_jax_large (STEPS_LARGE steps, label 1)
 SPARSE_STEPS, K1_PER_STEP = 20, 5
+# SAG (GraphConv scorer) on the same graph: its A X one more K1 launch
+# forward (a request, a step) and one backward (a step)
+SAG_STEPS = 5
+K1_PER_REQUEST = {"topk": 3, "sag": 4}
+K1_PER_TRAIN_STEP = {"topk": K1_PER_STEP, "sag": K1_PER_STEP + 2}
+# ASAP and PAN through the example twins' models, on the dense graphs
+# collated sparse (below PALLAS_MIN_EDGES: no K1; the readout's K4 once)
+SMALL_STEPS = 5
 # step one of training, GPU against the CPU's plain versions (bf16):
 LOSS_REL_TOL, GRAD_REL_TOL = 2e-2, 5e-2  # loss; each leaf's max |value|
 
@@ -747,32 +767,50 @@ def phase_k3_ragged():
     return rows
 
 
-def build_model(device, *, pool_mode="auto", use_kernel=None, seed=0):
-    """The served model, its weights drawn from one seeded generator."""
+def build_model(device, *, alias="topk", pool_mode="auto", use_kernel=None,
+                seed=0):
+    """The served model with the ``alias`` pooler (top-k, or SAG with its
+    GraphConv scorer), its weights drawn from one seeded generator;
+    ``use_kernel`` also reaches SAG's scorer."""
     from tgp_tpu_torch import PoolingClassifier, get_pooler
 
     g = torch.Generator().manual_seed(seed)
-    pooler = get_pooler("topk", in_channels=HIDDEN, ratio=0.5,
-                        pool_mode=pool_mode, device=device, generator=g)
+    pooler = get_pooler(alias, in_channels=HIDDEN, ratio=0.5,
+                        pool_mode=pool_mode, use_kernel=use_kernel,
+                        device=device, generator=g)
     return PoolingClassifier(pooler, num_classes=CLASSES, hidden=HIDDEN,
                              compute_dtype=torch.bfloat16,
                              use_kernel=use_kernel, device=device,
                              generator=g)
 
 
-def phase_serving(card, graphs, batch, collate_ms, profile: bool):
+def phase_serving(card, graphs, batch, collate_ms, profile: bool,
+                  alias="topk"):
     """Serve ``graphs`` (``batch`` is the first, collated) with the
     defaults a user gets, count the kernel launches, and hold the logits
-    to the CPU."""
+    to the CPU.  ``alias="sag"`` serves SAG: its GraphConv scorer must run
+    its ``A X`` in K1 (one more launch a request)."""
     from tgp_tpu_torch import Predictor
 
-    model = build_model("cuda").eval()
+    tag = "serving" if alias == "topk" else f"serving_{alias}"
+    k1_per_request = K1_PER_REQUEST[alias]
+    model = build_model("cuda", alias=alias).eval()
     predictor = Predictor(lambda b: model(b)[0], batch_size=1,
                           sort_edges=True, device="cuda")
     with torch.inference_mode():
         logits, out = model(batch)  # warm-up: cuBLAS handles, allocator
     if out.so.extras.get("pool_mode") != "masked":
         raise AssertionError("the served request did not take masked pooling")
+    if alias == "sag":
+        # the scorer alone: its A X is one K1 launch, at the input width
+        reset_counts()
+        with torch.inference_mode():
+            model.pooler.score(batch.with_features(
+                torch.randn(batch.num_nodes, HIDDEN, device="cuda")))
+        scorer = read_counts()
+        if scorer["spmm_csr"] != 1 or sum(scorer.values()) != 1:
+            raise AssertionError(f"SAG's scorer launched {scorer}, want one "
+                                 "K1 launch (its CSR branch)")
 
     # the main path, counted: the predictor answers every request
     reset_counts()
@@ -784,7 +822,8 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
     launches = read_counts()
     k4_routes = dict(_wrappers()["sorted_segment_sum"].launches_by_route)
     want = dict.fromkeys(launches, 0)
-    want.update(spmm_csr=3 * REQUESTS, sorted_segment_sum=REQUESTS)
+    want.update(spmm_csr=k1_per_request * REQUESTS,
+                sorted_segment_sum=REQUESTS)
     if launches != want or k4_routes != dict(long=REQUESTS, wide=0):
         raise AssertionError(f"{REQUESTS} requests launched {launches}, K4 "
                              f"by route {k4_routes}, want {want} and every "
@@ -810,7 +849,8 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
             fwd.append(start.elapsed_time(end))
 
     # the same model and request on the CPU, kernels' plain versions
-    cpu_model = build_model("cpu", pool_mode="masked", use_kernel=True)
+    cpu_model = build_model("cpu", alias=alias, pool_mode="masked",
+                            use_kernel=True)
     cpu_model.load_state_dict({k: v.cpu() for k, v in
                                model.state_dict().items()})
     with torch.inference_mode():
@@ -829,9 +869,13 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
         collate_ms=collate_ms, forward_device_ms=statistics.median(fwd),
         forward_device_ms_all=fwd, launches=launches,
         k4_launches_by_route=k4_routes,
+        k1_launches_per_request=launches["spmm_csr"] / REQUESTS,
+        k4_launches_per_request=launches["sorted_segment_sum"] / REQUESTS,
         logits_first=served[0].tolist(), cpu_logits_first=ref[0].tolist(),
         max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=True)
-    print(f"[serving] {json.dumps(result)}", flush=True)
+    if alias == "sag":
+        result["scorer_launches"] = scorer
+    print(f"[{tag}] {json.dumps(result)}", flush=True)
 
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof
@@ -840,6 +884,7 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool):
             for _ in range(3):
                 model(batch)
             torch.cuda.synchronize()
+        print(f"[{tag} profile]", flush=True)
         print(p.key_averages().table(sort_by="cuda_time_total",
                                      row_limit=25), flush=True)
     return result
@@ -878,6 +923,20 @@ def _step_one_grads(model, batch, y):
     loss.backward()
     return loss.detach(), {k: v.grad.detach().float().clone()
                            for k, v in model.named_parameters()}
+
+
+def _step_one_errors(name, loss, grads, cpu_loss, cpu_grads):
+    """Step one on the card against the CPU: the loss's relative error
+    and each gradient leaf's largest error over its largest |value|;
+    raises past LOSS_REL_TOL or GRAD_REL_TOL."""
+    loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+    grad_err = {k: float((grads[k] - g).abs().max()
+                         / max(float(g.abs().max()), 1e-30))
+                for k, g in cpu_grads.items()}
+    if loss_err > LOSS_REL_TOL or max(grad_err.values()) > GRAD_REL_TOL:
+        raise AssertionError(f"{name} on the card vs the CPU: loss {loss} "
+                             f"vs {cpu_loss}, gradient errors {grad_err}")
+    return loss_err, grad_err
 
 
 def phase_train_dense(card, dense, y, n_edges, profile: bool):
@@ -935,14 +994,8 @@ def phase_train_dense(card, dense, y, n_edges, profile: bool):
     cpu_loss, cpu_grads = _step_one_grads(cpu, dense.to("cpu"), y.cpu())
     cpu_loss = float(cpu_loss)
     cpu_s = time.perf_counter() - t0
-    loss_err = abs(loss0 - cpu_loss) / abs(cpu_loss)
-    grad_err = {k: float((grads0[k] - g).abs().max()
-                         / max(float(g.abs().max()), 1e-30))
-                for k, g in cpu_grads.items()}
-    if loss_err > LOSS_REL_TOL or max(grad_err.values()) > GRAD_REL_TOL:
-        raise AssertionError(f"step one on the card vs the CPU: loss "
-                             f"{loss0} vs {cpu_loss}, gradient errors "
-                             f"{grad_err}")
+    loss_err, grad_err = _step_one_errors("step one", loss0, grads0,
+                                          cpu_loss, cpu_grads)
     med = statistics.median(step_ms)
     result = dict(
         card=card, graphs=DENSE_GRAPHS, nodes=DENSE_NODES, edges=n_edges,
@@ -1053,12 +1106,17 @@ def _idle_profile(step, steps, med_ms, tag):
     return row
 
 
-def phase_train_sparse(card, profile: bool):
+def phase_train_sparse(card, profile: bool, alias="topk"):
     """``bench.py::bench_jax_large`` on the card: the served model trains
     SPARSE_STEPS Adam steps on one full-size graph (bf16, the CSR kernel
     forward and backward, masked pooling), K1 counted every step, step one
-    held against the CPU."""
+    held against the CPU.  ``alias="sag"``: the SAG model, SAG_STEPS
+    steps, two more K1 launches a step (its scorer's A X and gradient)."""
     from tgp_tpu_torch import from_graphs
+
+    tag = "train_sparse" if alias == "topk" else f"train_{alias}"
+    steps = SPARSE_STEPS if alias == "topk" else SAG_STEPS
+    k1_per_step = K1_PER_TRAIN_STEP[alias]
 
     x, ei = request_graph(7)  # bench_jax_large's graph: default_rng(7)
     torch.cuda.synchronize()
@@ -1072,7 +1130,7 @@ def phase_train_sparse(card, profile: bool):
     # hundreds, so a model whose top logit is already label 1 has a loss of
     # 0 and nothing to compare: take the first seed whose loss is >= 1
     for seed in range(16):
-        model = build_model("cuda", seed=seed)
+        model = build_model("cuda", alias=alias, seed=seed)
         with torch.no_grad():
             logits, out = model(batch)
         if float(torch.nn.functional.cross_entropy(logits, y)) >= 1.0:
@@ -1087,11 +1145,11 @@ def phase_train_sparse(card, profile: bool):
     K1 = _wrappers()["spmm_csr"]
     K4 = _wrappers()["sorted_segment_sum"]
 
-    # the main path, counted: SPARSE_STEPS steps, K1 five times a step and
-    # K4 (the readout) once, on its "long" route
+    # the main path, counted: K1 k1_per_step times a step and K4 (the
+    # readout) once, on its "long" route
     reset_counts()
     step_ms, losses, per_step, k4_per_step = [], [], [], []
-    for i in range(SPARSE_STEPS):
+    for i in range(steps):
         before, k4_before = K1.launches, K4.launches_by_route["long"]
         if i == 0:  # step one keeps its gradients for the CPU check
             def first():
@@ -1110,14 +1168,13 @@ def phase_train_sparse(card, profile: bool):
         per_step.append(K1.launches - before)
         k4_per_step.append(K4.launches_by_route["long"] - k4_before)
     launches = read_counts()
-    if (per_step != [K1_PER_STEP] * SPARSE_STEPS
-            or k4_per_step != [1] * SPARSE_STEPS):
+    if per_step != [k1_per_step] * steps or k4_per_step != [1] * steps:
         raise AssertionError(f"K1 launches per step {per_step}, K4 on the "
-                             f"long route {k4_per_step}, want {K1_PER_STEP} "
+                             f"long route {k4_per_step}, want {k1_per_step} "
                              "and 1")
-    if launches["sorted_segment_sum"] != SPARSE_STEPS:
+    if launches["sorted_segment_sum"] != steps:
         raise AssertionError(f"K4 launched {launches['sorted_segment_sum']} "
-                             f"times in {SPARSE_STEPS} steps")
+                             f"times in {steps} steps")
     if any(n for name, n in launches.items()
            if name not in ("spmm_csr", "sorted_segment_sum")):
         raise AssertionError(f"unexpected launches {launches}")
@@ -1125,24 +1182,19 @@ def phase_train_sparse(card, profile: bool):
         raise AssertionError(f"non-finite losses {losses}")
 
     # step one on the CPU: same weights and graph, plain versions
-    cpu = build_model("cpu", pool_mode="masked", use_kernel=True)
+    cpu = build_model("cpu", alias=alias, pool_mode="masked",
+                      use_kernel=True)
     cpu.load_state_dict(init)
     t0 = time.perf_counter()
     cpu_loss, cpu_grads = _step_one_grads(cpu, batch.to("cpu"), y.cpu())
     cpu_loss = float(cpu_loss)
     cpu_s = time.perf_counter() - t0
-    loss_err = abs(loss0 - cpu_loss) / abs(cpu_loss)
-    grad_err = {k: float((grads0[k] - g).abs().max()
-                         / max(float(g.abs().max()), 1e-30))
-                for k, g in cpu_grads.items()}
-    if loss_err > LOSS_REL_TOL or max(grad_err.values()) > GRAD_REL_TOL:
-        raise AssertionError(f"step one on the card vs the CPU: loss "
-                             f"{loss0} vs {cpu_loss}, gradient errors "
-                             f"{grad_err}")
+    loss_err, grad_err = _step_one_errors("step one", loss0, grads0,
+                                          cpu_loss, cpu_grads)
     med = statistics.median(step_ms)
     result = dict(
         card=card, nodes=batch.num_nodes, edges=n_edges,
-        edge_slots=batch.num_edges, seed=seed, steps=SPARSE_STEPS,
+        edge_slots=batch.num_edges, seed=seed, steps=steps,
         step_ms=step_ms,
         step_ms_median=med, edges_per_s=n_edges / (med / 1e3),
         collate_ms=collate_ms, losses=losses, launches=launches,
@@ -1152,11 +1204,113 @@ def phase_train_sparse(card, profile: bool):
         loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
         grad_rel_tol=GRAD_REL_TOL, cpu_check_s=cpu_s,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"[train_sparse] {json.dumps(result)}", flush=True)
+    print(f"[{tag}] {json.dumps(result)}", flush=True)
     if profile:
         result["profile"] = _idle_profile(
             lambda: _train_step(model, opt, batch, y, aux=False), 3, med,
-            "train_sparse")
+            tag)
+    return result
+
+
+def _small_model(which, device, seed=0):
+    """The example twins' models at the dense cell's width: the
+    classification example's ``PoolingClassifier`` with ASAP, or
+    ``PANNet``; ``logits(model, batch)`` reads either's logits."""
+    if which == "asap":
+        from examples.classification_torch import build_model as build
+
+        return build("asap", CLASSES, HIDDEN, FEATURES, device=device,
+                     seed=seed)
+    from examples.classification_pan_torch import PANNet
+
+    return PANNet(FEATURES, CLASSES, HIDDEN, device=device,
+                  generator=torch.Generator().manual_seed(seed))
+
+
+def _logits(model, batch):
+    out = model(batch)
+    return out[0] if isinstance(out, tuple) else out
+
+
+def phase_train_small(card, graphs, labels, which, profile: bool):
+    """ASAP (``which="asap"``) or PAN trains SMALL_STEPS Adam steps (f32)
+    through the example twin's model on the dense cell's 64 graphs,
+    collated sparse by ``GraphLoader``; below PALLAS_MIN_EDGES no K1 runs
+    and the readout's K4 once a step; step one held against the CPU."""
+    from tgp_tpu_torch.data import GraphLoader
+
+    loader = GraphLoader(graphs, labels, batch_size=len(graphs),
+                         device="cuda")
+    batch, y = next(iter(loader))
+    y = torch.as_tensor(y, device="cuda").long()
+    model = _small_model(which, "cuda")
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def loss_and_grads(m, b, yy):
+        m.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(_logits(m, b), yy)
+        loss.backward()
+        return loss.detach(), {k: v.grad.detach().float().clone()
+                               for k, v in m.named_parameters()}
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(_logits(model, batch), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    # the main path, counted
+    reset_counts()
+    step_ms, losses = [], []
+    for i in range(SMALL_STEPS):
+        if i == 0:
+            def first():
+                out = loss_and_grads(model, batch, y)
+                opt.step()
+                return out
+
+            ms, (loss, grads0) = _timed_step(first)
+            grads0 = {k: v.cpu() for k, v in grads0.items()}
+            loss0 = float(loss)
+        else:
+            ms, loss = _timed_step(step)
+        step_ms.append(ms)
+        losses.append(float(loss))
+    launches = read_counts()
+    k4_routes = dict(_wrappers()["sorted_segment_sum"].launches_by_route)
+    want = dict.fromkeys(launches, 0)
+    want["sorted_segment_sum"] = SMALL_STEPS
+    if launches != want:
+        raise AssertionError(f"{which}: {SMALL_STEPS} steps launched "
+                             f"{launches}, want {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{which}: non-finite losses {losses}")
+
+    cpu = _small_model(which, "cpu")
+    cpu.load_state_dict(init)
+    cpu_loss, cpu_grads = loss_and_grads(cpu, batch.to("cpu"), y.cpu())
+    cpu_loss = float(cpu_loss)
+    loss_err, grad_err = _step_one_errors(f"{which}: step one", loss0,
+                                          grads0, cpu_loss, cpu_grads)
+    med = statistics.median(step_ms)
+    n_edges = int(batch.edge_mask.sum())
+    result = dict(
+        card=card, graphs=len(graphs), nodes=int(batch.node_mask.sum()),
+        edges=n_edges, edges_sorted=batch.edges_sorted, steps=SMALL_STEPS,
+        step_ms=step_ms, step_ms_median=med,
+        edges_per_s=n_edges / (med / 1e3), losses=losses,
+        launches=launches, k4_launches_by_route=k4_routes,
+        k1_launches_per_step=launches["spmm_csr"] / SMALL_STEPS,
+        k4_launches_per_step=launches["sorted_segment_sum"] / SMALL_STEPS,
+        step1_loss=loss0, step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
+        loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
+        grad_rel_tol=GRAD_REL_TOL)
+    print(f"[train_{which}] {json.dumps(result)}", flush=True)
+    if profile:
+        result["profile"] = _idle_profile(step, 3, med, f"train_{which}")
     return result
 
 
@@ -1306,7 +1460,17 @@ def main(argv=None) -> int:
                               n_dense_edges, args.profile)
     phase_train_default(card, d_graphs, d_labels)
     sparse = phase_train_sparse(card, args.profile)
+    serving_sag = phase_serving(card, graphs, batch, collate_ms,
+                                args.profile, alias="sag")
+    train_sag = phase_train_sparse(card, args.profile, alias="sag")
+    small = {which: phase_train_small(card, d_graphs, d_labels, which,
+                                      args.profile)
+             for which in ("asap", "pan")}
     locality = phase_locality(card, d_graphs)
+    # the main paths' launches: K1 in sparse training and SAG's serving
+    # and training; K4 (the readout) there and in ASAP's and PAN's steps
+    k1_runs = (sparse, serving_sag, train_sag)
+    k4_runs = k1_runs + (small["asap"], small["pan"])
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -1318,7 +1482,8 @@ def main(argv=None) -> int:
 
     loc = locality["launches"]
     kernels = [
-        entry("spmm_csr", SOURCE, REPLACES, sparse["launches"]["spmm_csr"],
+        entry("spmm_csr", SOURCE, REPLACES,
+              sum(r["launches"]["spmm_csr"] for r in k1_runs),
               modes[f"K1 spmm_csr F={FEATURES} bfloat16"]),
         entry("segment_sum_sorted", SOURCE, K2_REPLACES,
               loc["segment_sum_sorted"],
@@ -1326,7 +1491,7 @@ def main(argv=None) -> int:
         entry("bmm", K3_SOURCE, K3_REPLACES, train["launches"]["bmm"],
               k3_modes["fwd pre"]),
         entry("sorted_segment_sum", K4_SOURCE, K4_REPLACES,
-              sparse["launches"]["sorted_segment_sum"],
+              sum(r["launches"]["sorted_segment_sum"] for r in k4_runs),
               modes[f"K4 readout F={HIDDEN} float32 segments=1"]),
         entry("spmm_banded", K5_SOURCE, K5_REPLACES, loc["spmm_banded"],
               next(m for k, m in band_modes.items() if k.startswith("K5"))),
@@ -1334,12 +1499,16 @@ def main(argv=None) -> int:
               next(m for k, m in band_modes.items() if k.startswith("K6")))]
     print(f"[modes] {json.dumps(list(modes.values()) + list(k3_modes.values()))}",
           flush=True)
-    print(f"K1 launches: serving {serving['launches']['spmm_csr']} for "
-          f"{REQUESTS} requests, sparse training "
-          f"{sparse['launches']['spmm_csr']} for {SPARSE_STEPS} steps; K4 "
-          f"(readout): serving {serving['launches']['sorted_segment_sum']}, "
-          f"sparse training {sparse['launches']['sorted_segment_sum']}",
-          flush=True)
+    runs = (("serving", serving, f"{REQUESTS} requests"),
+            ("sparse training", sparse, f"{SPARSE_STEPS} steps"),
+            ("SAG serving", serving_sag, f"{REQUESTS} requests"),
+            ("SAG training", train_sag, f"{SAG_STEPS} steps"),
+            ("ASAP training", small["asap"], f"{SMALL_STEPS} steps"),
+            ("PAN training", small["pan"], f"{SMALL_STEPS} steps"))
+    print("launches: " + "; ".join(
+        f"{name} K1 {r['launches']['spmm_csr']}, K4 "
+        f"{r['launches']['sorted_segment_sum']} for {unit}"
+        for name, r, unit in runs), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

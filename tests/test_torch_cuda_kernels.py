@@ -975,3 +975,76 @@ def test_cuda_gcn_sorted_branch_is_bit_equal_twice():
     with torch.no_grad():
         _twice_equal(lambda: conv(batch))
     assert K.segment_sum_sorted.launches == before + 4
+
+
+def _sag_batch(device, seed=4):
+    from tgp_tpu_torch.graph import from_graphs
+
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for n in (700, 300, 900):
+        e = 8 * n
+        graphs.append((rng.normal(size=(n, 24)).astype(np.float32),
+                       np.stack([rng.integers(0, n, e),
+                                 rng.integers(0, n, e)]),
+                       rng.random(e).astype(np.float32) + 0.1))
+    return from_graphs(graphs, sort_edges=True, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggr", ["add", "mean"])
+@pytest.mark.parametrize("shrink", [False, True])
+def test_cuda_graph_conv_csr_branch_matches_plain(aggr, shrink):
+    """SAG's GraphConv scorer on its CSR branch: ``A X`` in K1 on the card
+    against the same layer on the CPU (K1's plain version), values and
+    gradients, within 1e-5 of each tensor's largest |value| (f32 sums in
+    other orders); one K1 launch forward (two with ``mean``: the degree),
+    one backward."""
+    from tgp_tpu_torch.mp.gcn import GraphConv
+
+    _skip_without_card()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        batch = _sag_batch(dev)
+        if shrink:  # a masked pooled graph: node mask below the edges
+            nm = batch.node_mask & (torch.arange(batch.num_nodes,
+                                                 device=dev) % 3 != 0)
+            batch = batch.replace(node_mask=nm, in_degree=None,
+                                  node_mask_shrunk=True)
+        conv = GraphConv(24, 8, aggr=aggr, use_kernel=True, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        x = batch.x.clone().requires_grad_(True)
+        before = K.spmm_csr.launches
+        out = conv(batch, x)
+        launched = K.spmm_csr.launches - before
+        out.square().sum().backward()
+        outs[dev] = (out.detach().cpu(), x.grad.cpu(),
+                     conv.lin_1.weight.grad.cpu(), launched,
+                     K.spmm_csr.launches - before)
+    (o, gx, gw, fwd, total), (ro, rgx, rgw, _, _) = outs["cuda"], outs["cpu"]
+    assert (fwd, total) == ((2, 3) if aggr == "mean" else (1, 2))
+    for got, ref in ((o, ro), (gx, rgx), (gw, rgw)):
+        _assert_rel(got, ref, 1e-5, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_sag_forward_is_bit_equal_twice():
+    """The SAG model's forward on the card (GCN on K1, the GraphConv
+    scorer on K1, masked pooling, GCN, the readout on K4): every sum has a
+    fixed order, so two runs give the same bits."""
+    from tgp_tpu_torch.models.classifiers import PoolingClassifier
+    from tgp_tpu_torch.poolers import get_pooler
+
+    _skip_without_card()
+    batch = _sag_batch("cuda", seed=5)
+    g = torch.Generator().manual_seed(1)
+    pooler = get_pooler("sag", in_channels=32, ratio=0.5, pool_mode="masked",
+                        use_kernel=True, device="cuda", generator=g)
+    model = PoolingClassifier(pooler, num_classes=3, hidden=32,
+                              in_channels=24, use_kernel=True,
+                              compute_dtype=torch.bfloat16, device="cuda",
+                              generator=g)
+    before = K.spmm_csr.launches
+    with torch.no_grad():
+        _twice_equal(lambda: model(batch)[0])
+    assert K.spmm_csr.launches == before + 8

@@ -142,6 +142,7 @@ import pkgutil
 import sys
 import numpy as np
 import tgp_tpu_torch
+from tgp_tpu_torch.data import GraphLoader
 from tgp_tpu_torch.ops.ordering import plan_locality_spmm
 mods = [m.name for m in pkgutil.walk_packages(tgp_tpu_torch.__path__,
                                                'tgp_tpu_torch.')]
@@ -149,7 +150,13 @@ for name in mods:
     importlib.import_module(name)
 assert {'tgp_tpu_torch.ops.kernels.bmm', 'tgp_tpu_torch.models.prepare',
         'tgp_tpu_torch.models.fast_dense', 'tgp_tpu_torch.ops.ordering',
-        'tgp_tpu_torch.ops.kernels.sddmm'} <= set(mods), mods
+        'tgp_tpu_torch.ops.kernels.sddmm', 'tgp_tpu_torch.data.loaders',
+        'tgp_tpu_torch.data.transforms', 'tgp_tpu_torch.datasets.synthetic',
+        'tgp_tpu_torch.mp.leconv', 'tgp_tpu_torch.mp.pan',
+        'tgp_tpu_torch.poolers.sag', 'tgp_tpu_torch.poolers.asap',
+        'tgp_tpu_torch.poolers.pan'} <= set(mods), mods
+import examples.classification_torch
+import examples.classification_pan_torch
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tgp_tpu'))
 assert not bad, bad
@@ -159,6 +166,11 @@ g = [(np.zeros((3, 2), np.float32), np.array([[0, 1], [1, 2]]))]
 for call in (lambda: tgp_tpu_torch.from_graphs(g),
              lambda: tgp_tpu_torch.Predictor(lambda b: b.x),
              lambda: tgp_tpu_torch.get_pooler('topk', in_channels=4),
+             lambda: tgp_tpu_torch.get_pooler('sag', in_channels=4),
+             lambda: tgp_tpu_torch.get_pooler('asap', in_channels=4),
+             lambda: tgp_tpu_torch.get_pooler('pan', in_channels=4),
+             lambda: GraphLoader(g),
+             lambda: examples.classification_torch.main('sag', epochs=1),
              lambda: tgp_tpu_torch.PoolingClassifier(None, 3, hidden=4),
              lambda: tgp_tpu_torch.DenseTopkClassifier(3, hidden=4),
              lambda: plan_locality_spmm(g[0][1], 3)):

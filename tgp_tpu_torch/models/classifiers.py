@@ -5,7 +5,6 @@ the dense side with :func:`~tgp_tpu_torch.models.prepare.prepare_batch`)."""
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -17,21 +16,9 @@ from tgp_tpu_torch.graph import DenseGraphBatch
 from tgp_tpu_torch.mp.gcn import GCNConv
 from tgp_tpu_torch.reduce.global_reduce import global_reduce
 from tgp_tpu_torch.src import PoolingOutput
+from tgp_tpu_torch.utils.linear import lecun_normal_linear
 
 __all__ = ["PoolingClassifier"]
-
-
-def _lecun_normal_linear(n_in: int, n_out: int, generator) -> nn.Linear:
-    """``nn.Linear`` initialised like flax's ``nn.Dense``: truncated-normal
-    kernel with variance 1/fan_in, zero bias."""
-    lin = nn.Linear(n_in, n_out)
-    # flax's variance_scaling divides by the std of a [-2, 2]-truncated
-    # standard normal so the truncated draw keeps variance 1/fan_in
-    std = math.sqrt(1.0 / n_in) / 0.87962566103423978
-    nn.init.trunc_normal_(lin.weight, 0.0, std, -2 * std, 2 * std,
-                          generator=generator)
-    nn.init.zeros_(lin.bias)
-    return lin
 
 
 class PoolingClassifier(nn.Module):
@@ -79,8 +66,10 @@ class PoolingClassifier(nn.Module):
             GCNConv(pooled_ch if i == 0 else hidden, hidden, **conv_kw)
             for i in range(num_post_layers))
         head_in = hidden if num_post_layers else pooled_ch
-        self.dense_0 = _lecun_normal_linear(head_in, hidden, generator)
-        self.dense_1 = _lecun_normal_linear(hidden, num_classes, generator)
+        self.dense_0 = lecun_normal_linear(head_in, hidden,
+                                           generator=generator)
+        self.dense_1 = lecun_normal_linear(hidden, num_classes,
+                                           generator=generator)
         self.to(device)
 
     def forward(self, batch) -> Tuple[torch.Tensor, PoolingOutput]:

@@ -1,7 +1,9 @@
-"""Carry flax weights of ``tgp_tpu``'s ``PoolingClassifier`` and
-``DenseTopkClassifier`` over to the port's modules, so both packages
-compute the same function.  A flax gradient tree has the same paths and
-maps the same way, so gradients compare leaf by leaf."""
+"""Carry flax weights of ``tgp_tpu``'s ``PoolingClassifier`` (with the
+top-k, SAG, ASAP or PAN pooler), ``DenseTopkClassifier`` and the
+``PANNet`` of ``examples/classification_pan.py`` over to the port's
+modules, so both packages compute the same function.  A flax gradient
+tree has the same paths and maps the same way, so gradients compare leaf
+by leaf."""
 
 from __future__ import annotations
 
@@ -13,7 +15,15 @@ import torch
 
 __all__ = ["params_from_flax"]
 
-#: flax path → port name; ``{i}`` is the layer index
+#: the PANNet's flax module names → the port's
+_MODULES = {"PANConv_0": "pan_conv", "PANPooling_0": "pooler",
+            "GCNConv_0": "conv"}
+
+#: a layer inside a pooler (SAG's scorer, ASAP's layers) or a PANNet conv
+_LAYER = r"((?:pooler|pan_conv|conv)(?:/\w+)?)"
+
+#: flax path → port name (``/`` becomes ``.``); True where the leaf is a
+#: dense kernel to transpose
 _RULES = (
     (r"(pre|post)_conv_(\d+)/Dense_0/kernel", r"\1_convs.\2.lin.weight", True),
     (r"(pre|post)_conv_(\d+)/bias", r"\1_convs.\2.bias", False),
@@ -21,6 +31,14 @@ _RULES = (
     (r"p", r"p", False),  # DenseTopkClassifier's selector projection
     (r"Dense_([01])/kernel", r"dense_\1.weight", True),
     (r"Dense_([01])/bias", r"dense_\1.bias", False),
+    # a conv's flax Dense_0 is the port's lin, its Dense_k lin_k (GCNConv,
+    # GraphConv, LEConv, PANConv)
+    (_LAYER + r"/Dense_0/kernel", r"\1.lin.weight", True),
+    (_LAYER + r"/Dense_0/bias", r"\1.lin.bias", False),
+    (_LAYER + r"/Dense_([12])/kernel", r"\1.lin_\2.weight", True),
+    (_LAYER + r"/Dense_([12])/bias", r"\1.lin_\2.bias", False),
+    (r"pooler/(lin|att)/kernel", r"pooler.\1.weight", True),  # ASAP
+    (_LAYER + r"/(bias|hop_weight|p|beta)", r"\1.\2", False),
 )
 
 
@@ -34,19 +52,23 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Map a flax ``PoolingClassifier`` or ``DenseTopkClassifier``
-    parameter (or gradient) tree (``{"params": ...}`` or its inner dict;
-    leaves as numpy or JAX arrays) onto a ``state_dict`` of the port's
-    module of the same name.  Dense kernels (``[in, out]``) are transposed
-    for ``nn.Linear``.  Raises on a leaf it cannot place."""
+    """Map a flax ``PoolingClassifier``, ``DenseTopkClassifier`` or
+    ``PANNet`` parameter (or gradient) tree (``{"params": ...}`` or its
+    inner dict; leaves as numpy or JAX arrays) onto a ``state_dict`` of
+    the port's module of the same name.  Dense kernels (``[in, out]``)
+    are transposed for ``nn.Linear``.  Raises on a leaf it cannot
+    place."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     out = {}
     for path, leaf in _flatten(tree):
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
+        head, _, rest = path.partition("/")
+        path = "/".join(filter(None, (_MODULES.get(head, head), rest)))
         for pat, repl, transpose in _RULES:
             if re.fullmatch(pat, path):
-                out[re.sub(pat, repl, path)] = torch.from_numpy(
+                name = re.sub(pat, repl, path).replace("/", ".")
+                out[name] = torch.from_numpy(
                     np.ascontiguousarray(arr.T) if transpose else arr)
                 break
         else:

@@ -20,11 +20,11 @@ from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import DenseGraphBatch
-from tgp_tpu_torch.models.classifiers import _lecun_normal_linear
 from tgp_tpu_torch.mp.gcn import GCNConv
 from tgp_tpu_torch.poolers.topk import (dense_topk_apply, dense_topk_pool,
                                         gather_rows)
 from tgp_tpu_torch.reduce.global_reduce import global_reduce
+from tgp_tpu_torch.utils.linear import lecun_normal_linear
 
 __all__ = ["dense_topk_pool", "dense_topk_apply", "DenseTopkClassifier",
            "gather_rows"]
@@ -76,8 +76,10 @@ class DenseTopkClassifier(nn.Module):
                     normalize=post_normalize, **conv_kw)
             for i in range(num_post_layers))
         head_in = hidden if num_post_layers else pooled_ch
-        self.dense_0 = _lecun_normal_linear(head_in, hidden, generator)
-        self.dense_1 = _lecun_normal_linear(hidden, num_classes, generator)
+        self.dense_0 = lecun_normal_linear(head_in, hidden,
+                                           generator=generator)
+        self.dense_1 = lecun_normal_linear(hidden, num_classes,
+                                           generator=generator)
         self.to(device)
 
     def forward(self, dense: DenseGraphBatch

@@ -1,4 +1,7 @@
 """Message-passing layers."""
-from tgp_tpu_torch.mp.gcn import GCNConv, gcn_norm, gcn_norm_dense
+from tgp_tpu_torch.mp.gcn import GCNConv, GraphConv, gcn_norm, gcn_norm_dense
+from tgp_tpu_torch.mp.leconv import LEConv
+from tgp_tpu_torch.mp.pan import PANConv
 
-__all__ = ["GCNConv", "gcn_norm", "gcn_norm_dense"]
+__all__ = ["GCNConv", "GraphConv", "LEConv", "PANConv", "gcn_norm",
+           "gcn_norm_dense"]

@@ -1,5 +1,5 @@
 """GCN message passing (port of ``tgp_tpu/mp/gcn.py``: ``GCNConv``,
-``gcn_norm`` and ``gcn_norm_dense``).
+``GraphConv``, ``gcn_norm`` and ``gcn_norm_dense``).
 
 On a :class:`DenseGraphBatch` the layer is one batched ``[B,N,N]@[B,N,F]``
 product: the K3 kernel (:func:`~tgp_tpu_torch.ops.kernels.bmm.bmm`, f32
@@ -21,6 +21,10 @@ Self-loops follow ``add_remaining_self_loops`` in every branch: an
 existing loop keeps its weight and only nodes without one get the unit
 loop.  (The JAX CSR and sorted branches add a unit loop on top of an
 existing one; the port holds all branches to ``gcn_norm``.)
+
+``GraphConv`` (``X' = W₁X + b + W₂·AX``, SAG's default scorer) propagates
+``AX`` at the input width: in the CUDA kernel over the collator's CSR
+layout in the same regime as ``GCNConv``, else by gather + segment-sum.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ from tgp_tpu_torch.ops.sparse import (
     spmm,
     use_kernel_spmm,
 )
+from tgp_tpu_torch.utils.linear import apply_linear, lecun_normal_linear
 
-__all__ = ["GCNConv", "gcn_norm", "gcn_norm_dense"]
+__all__ = ["GCNConv", "GraphConv", "gcn_norm", "gcn_norm_dense"]
 
 Tensor = torch.Tensor
 
@@ -256,3 +261,78 @@ class GCNConv(nn.Module):
         if self.add_self_loops:
             out = out + h * (dinv * dinv * unit)[:, None]
         return out
+
+
+class GraphConv(nn.Module):
+    """``X' = W₁X + b + W₂·(A X)`` (PyG's ``GraphConv``; SAG's default
+    scorer), output zero on masked nodes.  ``lin`` and ``lin_1`` are the
+    flax layer's ``Dense_0`` (root, with bias) and ``Dense_1``
+    (neighbours), both computing in the promoted dtype of the features and
+    the weights.
+
+    ``A X`` (:meth:`propagate`) takes the CSR kernel
+    (:func:`~tgp_tpu_torch.ops.kernels.segment_spmm.spmm_csr`) on a batch
+    with the collator's CSR layout where ``use_kernel`` says so (``None``:
+    the regime map :func:`~tgp_tpu_torch.ops.sparse.use_kernel_spmm`;
+    ``True`` forces it, the kernel's plain version on CPU tensors), with
+    the node mask folded into ``x``; else gather + segment-sum with both
+    endpoints masked on a masked pooled graph.
+
+    ``aggr="mean"`` divides by the degree counted over exactly the edges
+    the sum adds (the same propagation of a column of ones, clamped at
+    1).  ``tgp_tpu``'s degree sums every edge's weight, masks ignored; the
+    two agree wherever every edge of the sum is valid (compact batches)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 aggr: str = "add", *, use_kernel: Optional[bool] = None,
+                 device: DeviceLike = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if aggr not in ("add", "mean"):
+            raise ValueError(f"aggr must be add|mean, got {aggr!r}")
+        self.aggr = aggr
+        self.use_kernel = use_kernel
+        self.lin = lecun_normal_linear(in_channels, out_channels,
+                                       generator=generator)
+        self.lin_1 = lecun_normal_linear(in_channels, out_channels,
+                                         bias=False, generator=generator)
+        self.to(resolve_device(device))
+
+    def forward(self, batch: GraphBatch, x: Optional[Tensor] = None
+                ) -> Tensor:
+        if x is None:
+            x = batch.x
+        root = apply_linear(self.lin, x)
+        neigh = self.propagate(batch, x)
+        if self.aggr == "mean":
+            ones = torch.ones(batch.num_nodes, 1, dtype=x.dtype,
+                              device=x.device)
+            neigh = neigh / torch.clamp(self.propagate(batch, ones), min=1.0)
+        out = root + apply_linear(self.lin_1, neigh)
+        return torch.where(batch.node_mask[:, None], out, 0.0)
+
+    def propagate(self, batch: GraphBatch, x: Tensor) -> Tensor:
+        """``A X`` over the valid edges (and, on a masked pooled graph, the
+        kept nodes), ``[N, F]`` in ``x``'s dtype."""
+        want = self.use_kernel
+        if want is None:
+            want = use_kernel_spmm(batch.num_edges, batch.edges_sorted,
+                                   x.device)
+        w = torch.where(batch.edge_mask, batch.edge_weight, 0.0)
+        if want and batch.edges_sorted and batch.row_ptr is not None:
+            from tgp_tpu_torch.ops.kernels.segment_spmm import spmm_csr
+
+            # masked senders add nothing; gradients stay exact because the
+            # mask scales x, not the edge list
+            nm = batch.node_mask[:, None].to(x.dtype)
+            w_t = (None if batch.edge_weight_t is None
+                   else batch.edge_weight_t.to(torch.float32))
+            return spmm_csr((x * nm).contiguous(), w.to(torch.float32), w_t,
+                            batch.senders, batch.receivers, batch.row_ptr,
+                            batch.receivers_t, batch.senders_t,
+                            batch.row_ptr_t, batch.num_nodes)
+        if batch.node_mask_shrunk:
+            nm = batch.node_mask
+            w = w * (nm[batch.senders.long()] & nm[batch.receivers.long()])
+        return spmm(batch.senders, batch.receivers, w, x,
+                    batch.num_nodes, indices_are_sorted=batch.edges_sorted)

@@ -149,7 +149,9 @@ def spmm(senders, receivers, edge_weight, x, num_nodes: int, *,
         method = ("kernel" if use_kernel_spmm(
             senders.shape[0], indices_are_sorted, x.device) else "torch")
     edge_weight = check_and_filter_edge_weights(edge_weight)
-    msgs = x[senders.long()] * edge_weight[:, None]
+    # index_select: its gradient is one index_add_, where x[idx]'s is a
+    # sort and a serial pass over each run of repeated ids
+    msgs = x.index_select(0, senders.long()) * edge_weight[:, None]
     if method == "kernel":
         if not indices_are_sorted:
             raise ValueError(

@@ -1,5 +1,6 @@
 """Pooler registry and string-alias factory (port of
-``tgp_tpu/poolers/__init__.py``; only ``"topk"`` is ported so far).
+``tgp_tpu/poolers/__init__.py``): the score-and-keep poolers ``"topk"``,
+``"sag"``, ``"asap"`` and ``"pan"`` are ported so far.
 
 ``get_pooler(alias, **kwargs)`` drops kwargs the pooler's constructor
 does not take, translates the reference spellings ``lift=`` and
@@ -12,12 +13,18 @@ from __future__ import annotations
 import inspect
 from typing import Dict, Type
 
+from tgp_tpu_torch.poolers.asap import ASAPooling
+from tgp_tpu_torch.poolers.pan import PANPooling
+from tgp_tpu_torch.poolers.sag import SAGPooling
 from tgp_tpu_torch.poolers.topk import TopkPooling
 from tgp_tpu_torch.src import SRCPooling
 
-__all__ = ["get_pooler", "pooler_map", "pooler_signature", "TopkPooling"]
+__all__ = ["get_pooler", "pooler_map", "pooler_signature", "TopkPooling",
+           "SAGPooling", "ASAPooling", "PANPooling"]
 
-_REGISTRY: Dict[str, Type[SRCPooling]] = {"topk": TopkPooling}
+_REGISTRY: Dict[str, Type[SRCPooling]] = {
+    "topk": TopkPooling, "sag": SAGPooling, "asap": ASAPooling,
+    "pan": PANPooling}
 
 
 def pooler_map() -> Dict[str, Type[SRCPooling]]:
