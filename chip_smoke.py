@@ -77,15 +77,33 @@ each of which raises on failure:
    the dense cell's 64 graphs collated sparse by ``GraphLoader`` (below
    ``PALLAS_MIN_EDGES``: the readout's K4 once a step, no K1), step one
    held against the CPU;
-10. the locality path on the union of the dense graphs (16,384 nodes):
+10. the clustering poolers served and trained at the serving width:
+   ``[serving_graclus]``, ``[serving_kmis]`` and ``[serving_ec]`` are
+   ``[serving]`` with that pooler (K1 once a request — the pooled graph is
+   sender-major with no CSR layout, so the post-pool GCN takes the
+   generic branch — and the readout's K4 once over the 65,536 cluster
+   slots, ``"long"``), each with its greedy loop's rounds, logits held to
+   the CPU, the cluster ids equal to the CPU's (Graclus's own run;
+   k-MIS's and edge contraction's on the card's ranks, which the CPU
+   reference takes: their scores pass through bf16 features) and whether
+   a repeated request gives the same bits reported; ``[train_ec]`` and
+   ``[train_kmis]`` are ``[train_sparse]`` with that model for 5 steps
+   (K1 twice and K4 once a step, step one on the card's ranks);
+   ``[train_lap]`` trains LaPool 5 steps (f32) through the classification
+   twin's model with ``use_kernel=True`` on the dense cell's graphs
+   collated sparse: its dense ``[64, 256, 256]`` pooled graph's GCN
+   products run in K3, three a step, step one held against the CPU;
+11. the locality path on the union of the dense graphs (16,384 nodes):
    ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
    engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
    ``sddmm_banded`` (K6) on the same plan, each held against the plain
    product of the graph in its own order.
 
 Every ``[kernels]`` row carries the card's ``nvidia-smi`` name and power
-limit; the kernels line counts K1's launches in sparse training and SAG's
-serving and training, K4's there and in ASAP's and PAN's steps.  The next-to-last line of output is a JSON object ``{"kernels":
+limit; the kernels line counts K1's launches in sparse training, SAG's
+and the clustering poolers' serving and training, K4's there and in
+ASAP's and PAN's steps, K3's in dense training and LaPool's steps; the
+``launches:`` line gives each path's K1, K3 and K4.  The next-to-last line of output is a JSON object ``{"kernels":
 [...]}``; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the rest of the repository, it exits non-zero and prints no
 result.
@@ -94,6 +112,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -140,11 +159,31 @@ SPARSE_STEPS, K1_PER_STEP = 20, 5
 # SAG (GraphConv scorer) on the same graph: its A X one more K1 launch
 # forward (a request, a step) and one backward (a step)
 SAG_STEPS = 5
-K1_PER_REQUEST = {"topk": 3, "sag": 4}
-K1_PER_TRAIN_STEP = {"topk": K1_PER_STEP, "sag": K1_PER_STEP + 2}
-# ASAP and PAN through the example twins' models, on the dense graphs
-# collated sparse (below PALLAS_MIN_EDGES: no K1; the readout's K4 once)
+# the clustering poolers (Graclus, k-MIS, edge contraction) on the same
+# graph: only the pre-pool GCN runs K1 (its product forward, its d_h
+# backward); the pooled graph is sender-major without a CSR layout, so the
+# post-pool GCN takes the generic branch, and the readout's K4 sums the
+# 65,536 cluster slots on its "long" route
+CLUSTERS = ("graclus", "kmis", "ec")
+CLUSTER_STEPS = 5
+K1_PER_REQUEST = {"topk": 3, "sag": 4, "graclus": 1, "kmis": 1, "ec": 1}
+K1_PER_TRAIN_STEP = {"topk": K1_PER_STEP, "sag": K1_PER_STEP + 2,
+                     "kmis": 2, "ec": 2}
+# edge contraction's scores are a softmax over each receiver's edges,
+# which a shift of every score leaves as it is: the scorer's bias takes a
+# zero gradient, held under its weight's gradient scale on both sides
+ZERO_GRADS = {"ec": {"pooler.selector.lin.bias":
+                     "pooler.selector.lin.weight"}}
+# LaPool on the dense cell's graphs: its dense pooled graph's GCN product
+# in K3 forward, and both operands' products backward (the pooled
+# adjacency depends on the features through S)
+K3_PER_LAP_STEP = 3
+# ASAP, PAN and LaPool through the example twins' models, on the dense
+# graphs collated sparse (below PALLAS_MIN_EDGES: no K1); launches a step
 SMALL_STEPS = 5
+SMALL_LAUNCHES = {"asap": {"sorted_segment_sum": 1},
+                  "pan": {"sorted_segment_sum": 1},
+                  "lap": {"bmm": K3_PER_LAP_STEP}}
 # step one of training, GPU against the CPU's plain versions (bf16):
 LOSS_REL_TOL, GRAD_REL_TOL = 2e-2, 5e-2  # loss; each leaf's max |value|
 
@@ -767,11 +806,41 @@ def phase_k3_ragged():
     return rows
 
 
+@contextlib.contextmanager
+def pinned_ranks(record=None, replay=None):
+    """Record the ranks the k-MIS and edge-contraction selections draw
+    (appended to ``record``, on the CPU), or hand out ``replay``'s in
+    their place, in order: the CPU reference then runs the greedy loop in
+    the card's order.  Their scores pass through bf16 features, so an
+    independent CPU run may break near-ties the other way."""
+    from tgp_tpu_torch.select import edge_contraction, kmis
+
+    real = edge_contraction.rank_by
+    queue = list(replay or [])
+
+    def rank_by(score, valid):
+        if replay is not None:
+            return queue.pop(0).to(score.device)
+        out = real(score, valid)
+        record.append(out.cpu())
+        return out
+
+    for mod in (edge_contraction, kmis):
+        mod.rank_by = rank_by
+    try:
+        yield
+    finally:
+        for mod in (edge_contraction, kmis):
+            mod.rank_by = real
+    if replay is not None and queue:
+        raise AssertionError(f"{len(queue)} recorded ranks left unused")
+
+
 def build_model(device, *, alias="topk", pool_mode="auto", use_kernel=None,
                 seed=0):
-    """The served model with the ``alias`` pooler (top-k, or SAG with its
-    GraphConv scorer), its weights drawn from one seeded generator;
-    ``use_kernel`` also reaches SAG's scorer."""
+    """The served model with the ``alias`` pooler (top-k, SAG with its
+    GraphConv scorer, or a clustering pooler), its weights drawn from one
+    seeded generator; ``use_kernel`` also reaches SAG's scorer."""
     from tgp_tpu_torch import PoolingClassifier, get_pooler
 
     g = torch.Generator().manual_seed(seed)
@@ -789,17 +858,25 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
     """Serve ``graphs`` (``batch`` is the first, collated) with the
     defaults a user gets, count the kernel launches, and hold the logits
     to the CPU.  ``alias="sag"`` serves SAG: its GraphConv scorer must run
-    its ``A X`` in K1 (one more launch a request)."""
+    its ``A X`` in K1 (one more launch a request).  A clustering pooler
+    (``CLUSTERS``): K1 once a request, the greedy loop's rounds reported;
+    Graclus's clusters equal the CPU's own run, k-MIS's and edge
+    contraction's the CPU's run on the card's ranks (the CPU reference
+    takes them); whether a repeated request gives the same bits is
+    reported (its duplicate-edge merge and post-pool GCN add by
+    ``index_add_``), where top-k and SAG must."""
     from tgp_tpu_torch import Predictor
 
     tag = "serving" if alias == "topk" else f"serving_{alias}"
     k1_per_request = K1_PER_REQUEST[alias]
+    clustering = alias in CLUSTERS
     model = build_model("cuda", alias=alias).eval()
     predictor = Predictor(lambda b: model(b)[0], batch_size=1,
                           sort_edges=True, device="cuda")
-    with torch.inference_mode():
+    ranks = []
+    with torch.inference_mode(), pinned_ranks(record=ranks):
         logits, out = model(batch)  # warm-up: cuBLAS handles, allocator
-    if out.so.extras.get("pool_mode") != "masked":
+    if not clustering and out.so.extras.get("pool_mode") != "masked":
         raise AssertionError("the served request did not take masked pooling")
     if alias == "sag":
         # the scorer alone: its A X is one K1 launch, at the input width
@@ -831,9 +908,11 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
     served = np.concatenate(served)
     if served.shape != (REQUESTS, CLASSES) or not np.isfinite(served).all():
         raise AssertionError(f"bad logits {served}")
-    # every sum of the path has a fixed order: the same request, the same bits
+    # top-k and SAG: every sum of the path has a fixed order, so the same
+    # request gives the same bits
     again = predictor([graphs[0]])
-    if not np.array_equal(again[0], served[0]):
+    repeat_equal = bool(np.array_equal(again[0], served[0]))
+    if not repeat_equal and not clustering:
         raise AssertionError(f"two requests on one graph differ: {again[0]} "
                              f"vs {served[0]}")
 
@@ -848,17 +927,19 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
             end.synchronize()
             fwd.append(start.elapsed_time(end))
 
-    # the same model and request on the CPU, kernels' plain versions
+    # the same model and request on the CPU, kernels' plain versions (the
+    # clustering poolers' greedy loops in the card's order)
     cpu_model = build_model("cpu", alias=alias, pool_mode="masked",
                             use_kernel=True)
     cpu_model.load_state_dict({k: v.cpu() for k, v in
                                model.state_dict().items()})
-    with torch.inference_mode():
+    with torch.inference_mode(), pinned_ranks(replay=ranks):
         ref, ref_out = cpu_model(batch.to("cpu"))
     ref = ref.numpy()
     tol = 2e-2 * float(np.abs(ref).max())
     diff = float(np.abs(served[0] - ref[0]).max())
-    if ref_out.so.extras.get("pool_mode") != "masked" or diff > tol:
+    if (not clustering and ref_out.so.extras.get("pool_mode") != "masked"
+            or diff > tol):
         raise AssertionError(f"GPU logits {served[0]} vs CPU {ref[0]}: "
                              f"max |diff| {diff} > {tol}")
 
@@ -872,9 +953,28 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
         k1_launches_per_request=launches["spmm_csr"] / REQUESTS,
         k4_launches_per_request=launches["sorted_segment_sum"] / REQUESTS,
         logits_first=served[0].tolist(), cpu_logits_first=ref[0].tolist(),
-        max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=True)
+        max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=repeat_equal)
     if alias == "sag":
         result["scorer_launches"] = scorer
+    if clustering:
+        # the same clusters: Graclus's ranks come from the input's weights
+        # (the CPU ran its own), the others' from the card (replayed)
+        got_ci = out.so.cluster_index.cpu()
+        if not torch.equal(got_ci, ref_out.so.cluster_index):
+            raise AssertionError(
+                f"{alias}: {int((got_ci != ref_out.so.cluster_index).sum())}"
+                " cluster ids differ from the CPU's")
+        rounds = int(out.so.extras["rounds"])
+        if rounds != int(ref_out.so.extras["rounds"]):
+            raise AssertionError(f"{alias}: {rounds} rounds on the card, "
+                                 f"{int(ref_out.so.extras['rounds'])} on "
+                                 "the CPU")
+        result.update(rounds=rounds, clusters=int(out.so.out_mask().sum()),
+                      cluster_ids_equal_cpu=True,
+                      ranks_from="input" if alias == "graclus" else "card")
+        if repeat_equal is False:
+            result["repeat_max_abs_diff"] = float(
+                np.abs(again[0] - served[0]).max())
     print(f"[{tag}] {json.dumps(result)}", flush=True)
 
     if profile:
@@ -887,6 +987,13 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
         print(f"[{tag} profile]", flush=True)
         print(p.key_averages().table(sort_by="cuda_time_total",
                                      row_limit=25), flush=True)
+        from torch.autograd import DeviceType
+        busy = sum(e.self_device_time_total for e in p.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation) / 1e3
+        row = dict(forwards=3, device_busy_ms=busy,
+                   busy_ms_per_forward=busy / 3)
+        print(f"[{tag} profile] {json.dumps(row)}", flush=True)
     return result
 
 
@@ -925,14 +1032,22 @@ def _step_one_grads(model, batch, y):
                            for k, v in model.named_parameters()}
 
 
-def _step_one_errors(name, loss, grads, cpu_loss, cpu_grads):
+def _step_one_errors(name, loss, grads, cpu_loss, cpu_grads, zero=None):
     """Step one on the card against the CPU: the loss's relative error
     and each gradient leaf's largest error over its largest |value|;
-    raises past LOSS_REL_TOL or GRAD_REL_TOL."""
+    raises past LOSS_REL_TOL or GRAD_REL_TOL.  ``zero`` maps a leaf whose
+    gradient is 0 in exact arithmetic (rounding noise on both sides, so
+    not compared with each other) to the leaf whose largest |value| it is
+    held under, on the card and on the CPU, within GRAD_REL_TOL."""
+    zero = zero or {}
     loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
     grad_err = {k: float((grads[k] - g).abs().max()
                          / max(float(g.abs().max()), 1e-30))
-                for k, g in cpu_grads.items()}
+                for k, g in cpu_grads.items() if k not in zero}
+    for k, ref in zero.items():
+        scale = max(float(cpu_grads[ref].abs().max()), 1e-30)
+        grad_err[k] = max(float(grads[k].abs().max()),
+                          float(cpu_grads[k].abs().max())) / scale
     if loss_err > LOSS_REL_TOL or max(grad_err.values()) > GRAD_REL_TOL:
         raise AssertionError(f"{name} on the card vs the CPU: loss {loss} "
                              f"vs {cpu_loss}, gradient errors {grad_err}")
@@ -1111,12 +1226,16 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
     SPARSE_STEPS Adam steps on one full-size graph (bf16, the CSR kernel
     forward and backward, masked pooling), K1 counted every step, step one
     held against the CPU.  ``alias="sag"``: the SAG model, SAG_STEPS
-    steps, two more K1 launches a step (its scorer's A X and gradient)."""
+    steps, two more K1 launches a step (its scorer's A X and gradient).
+    ``"ec"``/``"kmis"``: CLUSTER_STEPS steps, K1 twice a step (the
+    pre-pool GCN), the CPU's step one on the card's step-one ranks."""
     from tgp_tpu_torch import from_graphs
 
     tag = "train_sparse" if alias == "topk" else f"train_{alias}"
-    steps = SPARSE_STEPS if alias == "topk" else SAG_STEPS
+    steps = {"topk": SPARSE_STEPS, "sag": SAG_STEPS}.get(alias,
+                                                         CLUSTER_STEPS)
     k1_per_step = K1_PER_TRAIN_STEP[alias]
+    clustering = alias in CLUSTERS
 
     x, ei = request_graph(7)  # bench_jax_large's graph: default_rng(7)
     torch.cuda.synchronize()
@@ -1137,7 +1256,7 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
             break
     else:
         raise AssertionError("no seed in 0..15 gives label 1 a loss >= 1")
-    if out.so.extras.get("pool_mode") != "masked":
+    if not clustering and out.so.extras.get("pool_mode") != "masked":
         raise AssertionError("the training graph did not take masked pooling")
     init = {k: v.detach().cpu().clone() for k, v in
             model.state_dict().items()}
@@ -1149,11 +1268,13 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
     # readout) once, on its "long" route
     reset_counts()
     step_ms, losses, per_step, k4_per_step = [], [], [], []
+    ranks = []
     for i in range(steps):
         before, k4_before = K1.launches, K4.launches_by_route["long"]
         if i == 0:  # step one keeps its gradients for the CPU check
             def first():
-                out = _step_one_grads(model, batch, y)
+                with pinned_ranks(record=ranks):
+                    out = _step_one_grads(model, batch, y)
                 opt.step()
                 return out
 
@@ -1186,14 +1307,23 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
                       use_kernel=True)
     cpu.load_state_dict(init)
     t0 = time.perf_counter()
-    cpu_loss, cpu_grads = _step_one_grads(cpu, batch.to("cpu"), y.cpu())
+    with pinned_ranks(replay=ranks):
+        cpu_loss, cpu_grads = _step_one_grads(cpu, batch.to("cpu"),
+                                              y.cpu())
     cpu_loss = float(cpu_loss)
     cpu_s = time.perf_counter() - t0
     loss_err, grad_err = _step_one_errors("step one", loss0, grads0,
-                                          cpu_loss, cpu_grads)
+                                          cpu_loss, cpu_grads,
+                                          zero=ZERO_GRADS.get(alias))
     med = statistics.median(step_ms)
+    extra = {}
+    if clustering:  # the greedy loop's rounds in a forward after the steps
+        with torch.no_grad():
+            _, out = model(batch)
+        extra = dict(rounds=int(out.so.extras["rounds"]),
+                     clusters=int(out.so.out_mask().sum()))
     result = dict(
-        card=card, nodes=batch.num_nodes, edges=n_edges,
+        **extra, card=card, nodes=batch.num_nodes, edges=n_edges,
         edge_slots=batch.num_edges, seed=seed, steps=steps,
         step_ms=step_ms,
         step_ms_median=med, edges_per_s=n_edges / (med / 1e3),
@@ -1214,12 +1344,14 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
 
 def _small_model(which, device, seed=0):
     """The example twins' models at the dense cell's width: the
-    classification example's ``PoolingClassifier`` with ASAP, or
-    ``PANNet``; ``logits(model, batch)`` reads either's logits."""
-    if which == "asap":
+    classification example's ``PoolingClassifier`` with ASAP, or with
+    LaPool and its dense pooled graph's products in K3, or ``PANNet``;
+    ``logits(model, batch)`` reads each one's logits."""
+    if which in ("asap", "lap"):
         from examples.classification_torch import build_model as build
 
-        return build("asap", CLASSES, HIDDEN, FEATURES, device=device,
+        return build(which, CLASSES, HIDDEN, FEATURES, device=device,
+                     use_kernel=True if which == "lap" else None,
                      seed=seed)
     from examples.classification_pan_torch import PANNet
 
@@ -1233,10 +1365,13 @@ def _logits(model, batch):
 
 
 def phase_train_small(card, graphs, labels, which, profile: bool):
-    """ASAP (``which="asap"``) or PAN trains SMALL_STEPS Adam steps (f32)
-    through the example twin's model on the dense cell's 64 graphs,
-    collated sparse by ``GraphLoader``; below PALLAS_MIN_EDGES no K1 runs
-    and the readout's K4 once a step; step one held against the CPU."""
+    """ASAP (``which="asap"``), PAN or LaPool (``"lap"``) trains
+    SMALL_STEPS Adam steps (f32) through the example twin's model on the
+    dense cell's 64 graphs, collated sparse by ``GraphLoader``; below
+    PALLAS_MIN_EDGES no K1 runs; the launches a step are
+    ``SMALL_LAUNCHES[which]`` (the readout's K4 once; LaPool's dense
+    pooled graph K3 three times, by route); step one held against the
+    CPU."""
     from tgp_tpu_torch.data import GraphLoader
 
     loader = GraphLoader(graphs, labels, batch_size=len(graphs),
@@ -1281,8 +1416,10 @@ def phase_train_small(card, graphs, labels, which, profile: bool):
         losses.append(float(loss))
     launches = read_counts()
     k4_routes = dict(_wrappers()["sorted_segment_sum"].launches_by_route)
+    k3_routes = dict(_wrappers()["bmm"].launches_by_route)
     want = dict.fromkeys(launches, 0)
-    want["sorted_segment_sum"] = SMALL_STEPS
+    want.update({k: n * SMALL_STEPS for k, n in SMALL_LAUNCHES[which]
+                 .items()})
     if launches != want:
         raise AssertionError(f"{which}: {SMALL_STEPS} steps launched "
                              f"{launches}, want {want}")
@@ -1303,6 +1440,8 @@ def phase_train_small(card, graphs, labels, which, profile: bool):
         step_ms=step_ms, step_ms_median=med,
         edges_per_s=n_edges / (med / 1e3), losses=losses,
         launches=launches, k4_launches_by_route=k4_routes,
+        k3_launches_by_route=k3_routes,
+        k3_launches_per_step=launches["bmm"] / SMALL_STEPS,
         k1_launches_per_step=launches["spmm_csr"] / SMALL_STEPS,
         k4_launches_per_step=launches["sorted_segment_sum"] / SMALL_STEPS,
         step1_loss=loss0, step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
@@ -1466,11 +1605,21 @@ def main(argv=None) -> int:
     small = {which: phase_train_small(card, d_graphs, d_labels, which,
                                       args.profile)
              for which in ("asap", "pan")}
+    serving_cl = {alias: phase_serving(card, graphs, batch, collate_ms,
+                                       args.profile, alias=alias)
+                  for alias in CLUSTERS}
+    train_cl = {alias: phase_train_sparse(card, args.profile, alias=alias)
+                for alias in ("ec", "kmis")}
+    small["lap"] = phase_train_small(card, d_graphs, d_labels, "lap",
+                                     args.profile)
     locality = phase_locality(card, d_graphs)
-    # the main paths' launches: K1 in sparse training and SAG's serving
-    # and training; K4 (the readout) there and in ASAP's and PAN's steps
-    k1_runs = (sparse, serving_sag, train_sag)
+    # the main paths' launches: K1 in sparse training, SAG's serving and
+    # training and the clustering poolers'; K4 (the readout) there and in
+    # ASAP's and PAN's steps; K3 in dense training and LaPool's steps
+    k1_runs = (sparse, serving_sag, train_sag, *serving_cl.values(),
+               *train_cl.values())
     k4_runs = k1_runs + (small["asap"], small["pan"])
+    k3_runs = (train, small["lap"])
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -1488,7 +1637,8 @@ def main(argv=None) -> int:
         entry("segment_sum_sorted", SOURCE, K2_REPLACES,
               loc["segment_sum_sorted"],
               modes[f"K2 segment_sum_sorted F={FEATURES} bfloat16"]),
-        entry("bmm", K3_SOURCE, K3_REPLACES, train["launches"]["bmm"],
+        entry("bmm", K3_SOURCE, K3_REPLACES,
+              sum(r["launches"]["bmm"] for r in k3_runs),
               k3_modes["fwd pre"]),
         entry("sorted_segment_sum", K4_SOURCE, K4_REPLACES,
               sum(r["launches"]["sorted_segment_sum"] for r in k4_runs),
@@ -1504,9 +1654,16 @@ def main(argv=None) -> int:
             ("SAG serving", serving_sag, f"{REQUESTS} requests"),
             ("SAG training", train_sag, f"{SAG_STEPS} steps"),
             ("ASAP training", small["asap"], f"{SMALL_STEPS} steps"),
-            ("PAN training", small["pan"], f"{SMALL_STEPS} steps"))
+            ("PAN training", small["pan"], f"{SMALL_STEPS} steps"),
+            *((f"{alias} serving", r, f"{REQUESTS} requests")
+              for alias, r in serving_cl.items()),
+            *((f"{alias} training", r, f"{CLUSTER_STEPS} steps")
+              for alias, r in train_cl.items()),
+            ("dense training", train, f"{DENSE_STEPS} steps"),
+            ("LaPool training", small["lap"], f"{SMALL_STEPS} steps"))
     print("launches: " + "; ".join(
-        f"{name} K1 {r['launches']['spmm_csr']}, K4 "
+        f"{name} K1 {r['launches']['spmm_csr']}, K3 "
+        f"{r['launches']['bmm']}, K4 "
         f"{r['launches']['sorted_segment_sum']} for {unit}"
         for name, r, unit in runs), flush=True)
     print(card, flush=True)

@@ -6,7 +6,8 @@ linear head, trained with Adam.
     python -m examples.classification_torch asap --device cpu
 
 Poolers: the port's ``get_pooler`` aliases (``topk``, ``sag``, ``asap``,
-``pan``).  Only the ``synthetic`` dataset is ported so far.
+``pan``, ``ec``, ``graclus``, ``kmis``, ``nopool``, ``lap``).  Only the
+``synthetic`` dataset is ported so far.
 """
 
 from __future__ import annotations
@@ -41,15 +42,18 @@ def load_dataset(dataset: str, data_dir: str | None = None):
 
 def build_model(alias: str, num_classes: int, hidden: int,
                 in_channels: int, *, pre_normalized: bool = False,
-                device="cuda", seed: int = 0) -> PoolingClassifier:
+                use_kernel=None, device="cuda",
+                seed: int = 0) -> PoolingClassifier:
     """The example's classifier, its weights drawn from one seeded
-    generator."""
+    generator; ``use_kernel`` is ``PoolingClassifier``'s (True runs a
+    dense pooled graph's GCN products in K3)."""
     g = torch.Generator().manual_seed(seed)
     pooler = get_pooler(alias, in_channels=hidden, ratio=0.5, k=16,
                         device=device, generator=g)
     return PoolingClassifier(pooler, num_classes=num_classes, hidden=hidden,
                              in_channels=in_channels,
-                             pre_normalized=pre_normalized, device=device,
+                             pre_normalized=pre_normalized,
+                             use_kernel=use_kernel, device=device,
                              generator=g)
 
 
@@ -76,8 +80,8 @@ def main(alias: str = "topk", epochs: int = 20, batch_size: int = 32,
     test_loader = GraphLoader(graphs[n_train:], labels[n_train:], **budget)
 
     # the regime map densifies a batch of small graphs once, on the way into
-    # the step, for a pooler that takes a dense batch (top-k); the
-    # score-and-keep poolers all keep GCN pre-normalization
+    # the step, for a pooler that takes a dense batch (top-k); the other
+    # poolers, LaPool among them, keep the batch sparse
     pooler_cls = type(get_pooler(alias, in_channels=hidden, device="cpu"))
 
     def prep(b):

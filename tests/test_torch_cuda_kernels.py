@@ -1048,3 +1048,118 @@ def test_cuda_sag_forward_is_bit_equal_twice():
     with torch.no_grad():
         _twice_equal(lambda: model(batch)[0])
     assert K.spmm_csr.launches == before + 8
+
+
+def _cluster_batch(device, seed=6, sizes=(700, 300, 900), deg=6):
+    from tgp_tpu_torch.graph import from_graphs
+
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for n in sizes:
+        e = deg * n
+        graphs.append((rng.normal(size=(n, 24)).astype(np.float32),
+                       np.stack([rng.integers(0, n, e),
+                                 rng.integers(0, n, e)]),
+                       rng.random(e).astype(np.float32) + 0.1))
+    return from_graphs(graphs, sort_edges=True, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["sparse", "dense"])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+def test_cuda_matching_matches_cpu_on_the_same_ranks(impl, ties):
+    """The greedy matching's rounds on the card (scatter-min rounds, or
+    the dense per-graph loop) give the CPU's matching and round count on
+    the same edge ranks, exactly."""
+    from tgp_tpu_torch.select.edge_contraction import matching, rank_by
+
+    _skip_without_card()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        batch = _cluster_batch(dev, sizes=(70, 30, 90))
+        key = (torch.ones(batch.num_edges) if ties else torch.rand(
+            batch.num_edges, generator=torch.Generator().manual_seed(2)))
+        rank = rank_by(key.to(dev), batch.edge_mask)
+        match, rounds = matching(rank, batch, impl)
+        out[dev] = (rank.cpu(), match.cpu(), int(rounds))
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2] == out["cpu"][2] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["sparse", "dense"])
+@pytest.mark.parametrize("order_k", [1, 2])
+def test_cuda_mis_matches_cpu_on_the_same_ranks(impl, order_k):
+    """k-MIS and its clusters on the card against the CPU on the same
+    node ranks, exactly (both engines)."""
+    from tgp_tpu_torch.select import kmis as KM
+    from tgp_tpu_torch.select.edge_contraction import rank_by
+
+    _skip_without_card()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        batch = _cluster_batch(dev, sizes=(70, 30, 90))
+        key = torch.rand(batch.num_nodes,
+                         generator=torch.Generator().manual_seed(3))
+        rank = rank_by(key.to(dev), batch.node_mask)
+        if impl == "dense":
+            mis, rounds = KM.maximal_independent_set_dense(rank, batch,
+                                                           order_k)
+            cl = KM.mis_cluster_dense(mis, rank, batch, order_k)
+        else:
+            args = (batch.senders, batch.receivers, batch.edge_mask,
+                    batch.node_mask, order_k)
+            mis, rounds = KM.maximal_independent_set(rank, *args)
+            cl = KM.mis_cluster(mis, rank, *args)
+        out[dev] = (mis.cpu(), cl.cpu(), int(rounds))
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2] == out["cpu"][2] >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_served_graclus_request_counts():
+    """A Graclus model served by ``Predictor`` in the CSR regime (E ≥
+    2¹⁸, sorted): K1 once (the pre-pool GCN) and the readout's K4 once a
+    request, no other kernel; the clusters equal the CPU's and the logits
+    lie within 2% of the CPU's logit scale."""
+    from tgp_tpu_torch.models.classifiers import PoolingClassifier
+    from tgp_tpu_torch.models.inference import Predictor
+    from tgp_tpu_torch.poolers import get_pooler
+
+    _skip_without_card()
+    rng = np.random.default_rng(8)
+    n, e = 20_000, 300_000
+    graph = (rng.normal(size=(n, 24)).astype(np.float32),
+             np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]))
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = PoolingClassifier(
+            get_pooler("graclus"), num_classes=3, hidden=32, in_channels=24,
+            compute_dtype=torch.bfloat16, device=dev,
+            generator=torch.Generator().manual_seed(0)).eval()
+    pred = Predictor(lambda b: models["cuda"](b)[0], batch_size=1,
+                     sort_edges=True, device="cuda")
+    pred([graph])
+    k1, k4 = K.spmm_csr.launches, K.sorted_segment_sum.launches
+    others = (K.segment_sum_sorted.launches, BMM.bmm.launches)
+    logits = pred([graph])
+    assert K.spmm_csr.launches == k1 + 1
+    assert K.sorted_segment_sum.launches == k4 + 1
+    assert (K.segment_sum_sorted.launches, BMM.bmm.launches) == others
+    for conv in models["cpu"].pre_convs:
+        conv.use_kernel = True  # the CSR branch's plain version
+    cpu = Predictor(lambda b: models["cpu"](b)[0], batch_size=1,
+                    sort_edges=True, device="cpu")
+    ref = cpu([graph])
+    np.testing.assert_allclose(logits, ref, rtol=0,
+                               atol=2e-2 * np.abs(ref).max())
+    from tgp_tpu_torch.graph import from_graphs
+
+    with torch.no_grad():
+        so_gpu = models["cuda"](from_graphs([graph], sort_edges=True,
+                                            device="cuda"))[1].so
+        so_cpu = models["cpu"](from_graphs([graph], sort_edges=True,
+                                           device="cpu"))[1].so
+    assert torch.equal(so_gpu.cluster_index.cpu(), so_cpu.cluster_index)

@@ -15,7 +15,11 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize("alias,route", [("topk", "dense"),
                                          ("sag", "sparse"),
                                          ("asap", "sparse"),
-                                         ("pan", "sparse")])
+                                         ("pan", "sparse"),
+                                         ("ec", "sparse"),
+                                         ("graclus", "sparse"),
+                                         ("kmis", "sparse"),
+                                         ("lap", "sparse")])
 def test_classification_twin_trains(alias, route):
     acc = ex.main(alias, epochs=2, verbose=False, device="cpu")
     assert acc > 0.6

@@ -262,7 +262,8 @@ def test_auto_pool_mode(monkeypatch):
 
 
 def test_get_pooler_factory():
-    assert set(pooler_map()) == {"topk", "sag", "asap", "pan"}
+    assert set(pooler_map()) == {"topk", "sag", "asap", "pan", "ec",
+                                 "graclus", "kmis", "nopool", "lap"}
     p = t_get("topk_u", in_channels=8, ratio=0.3, nonlinearity="relu",
               not_an_arg=1, device="cpu")
     assert p.ratio == 0.3 and p.selector.act == "relu"

@@ -1,4 +1,5 @@
 """Connect operators."""
-from tgp_tpu_torch.connect.base import ConnectConfig, sparse_connect
+from tgp_tpu_torch.connect.base import (ConnectConfig, dense_connect_unbatched,
+                                        sparse_connect)
 
-__all__ = ["ConnectConfig", "sparse_connect"]
+__all__ = ["ConnectConfig", "sparse_connect", "dense_connect_unbatched"]

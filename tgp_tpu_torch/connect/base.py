@@ -4,6 +4,8 @@
 Partial selection (top-k): ``A' = A[kept, kept]``, relabelled to supernode
 ids by masking, not compaction.  Total assignment: both endpoints
 relabelled, duplicates merged by :func:`~tgp_tpu_torch.ops.sparse.coalesce`.
+Unbatched dense ``S [N, K]``: per graph ``S_gᵀ A_g S_g`` without densifying
+``A`` (:func:`dense_connect_unbatched`).
 """
 
 from __future__ import annotations
@@ -13,11 +15,12 @@ from typing import Optional
 
 import torch
 
+from tgp_tpu_torch.ops.segment import dense_rows
 from tgp_tpu_torch.ops.sparse import (check_and_filter_edge_weights,
-                                      coalesce, postprocess_adj_sparse)
+                                      coalesce, postprocess_adj_sparse, spmm)
 from tgp_tpu_torch.select.base import SelectOutput
 
-__all__ = ["ConnectConfig", "sparse_connect"]
+__all__ = ["ConnectConfig", "sparse_connect", "dense_connect_unbatched"]
 
 
 @dataclass(frozen=True)
@@ -51,3 +54,17 @@ def sparse_connect(senders, receivers, edge_weight, edge_mask,
         so.num_graphs, remove_self_loops_flag=cfg.remove_self_loops,
         degree_norm=cfg.degree_norm, edge_weight_norm=cfg.edge_weight_norm,
         prune_eps=cfg.prune_eps)
+
+
+def dense_connect_unbatched(senders, receivers, edge_weight, s, node_graph,
+                            num_graphs: int, node_mask=None, *, node_pos,
+                            max_nodes: int):
+    """Per-graph ``S_gᵀ A_g S_g`` (``[B, K, K]``) from the flat COO and an
+    unbatched ``S [N, K]``: ``Z = A S`` by the port's :func:`~tgp_tpu_torch.
+    ops.sparse.spmm` (``Z_i = Σ_{e: s_e = i} w_e S_{r_e}``, JAX's SpMM
+    twin), then JAX's segment sum of the outer products ``S_i ⊗ Z_i`` as
+    ``S_gᵀ Z_g`` over each graph's block (``node_pos``, ``max_nodes``)."""
+    z = spmm(receivers, senders, edge_weight, s, s.shape[0])
+    place = (node_graph, node_pos, num_graphs, max_nodes, node_mask)
+    return torch.matmul(dense_rows(s, *place).transpose(1, 2),
+                        dense_rows(z, *place))

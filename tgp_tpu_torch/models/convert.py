@@ -1,5 +1,6 @@
 """Carry flax weights of ``tgp_tpu``'s ``PoolingClassifier`` (with the
-top-k, SAG, ASAP or PAN pooler), ``DenseTopkClassifier`` and the
+top-k, SAG, ASAP, PAN, edge-contraction or k-MIS pooler, or one without
+parameters), ``DenseTopkClassifier`` and the
 ``PANNet`` of ``examples/classification_pan.py`` over to the port's
 modules, so both packages compute the same function.  A flax gradient
 tree has the same paths and maps the same way, so gradients compare leaf
@@ -28,6 +29,9 @@ _RULES = (
     (r"(pre|post)_conv_(\d+)/Dense_0/kernel", r"\1_convs.\2.lin.weight", True),
     (r"(pre|post)_conv_(\d+)/bias", r"\1_convs.\2.bias", False),
     (r"pooler/selector/weight", r"pooler.selector.weight", False),
+    # the edge-contraction and k-MIS scorers
+    (r"pooler/selector/lin/kernel", r"pooler.selector.lin.weight", True),
+    (r"pooler/selector/lin/bias", r"pooler.selector.lin.bias", False),
     (r"p", r"p", False),  # DenseTopkClassifier's selector projection
     (r"Dense_([01])/kernel", r"dense_\1.weight", True),
     (r"Dense_([01])/bias", r"dense_\1.bias", False),

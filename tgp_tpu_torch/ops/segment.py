@@ -7,6 +7,8 @@ fills for empty segments.  None of them syncs with the device.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 __all__ = [
@@ -18,6 +20,8 @@ __all__ = [
     "segment_count",
     "segment_normalize",
     "segment_topk_rank",
+    "node_cells",
+    "dense_rows",
 ]
 
 Tensor = torch.Tensor
@@ -145,3 +149,22 @@ def segment_topk_rank(scores: Tensor, segment_ids: Tensor, num_segments: int,
     start = torch.cumsum(total, 0) - total
     seg = segment_ids.long().clamp(0, num_segments - 1)
     return (pos - start[seg]).to(torch.int32)
+
+
+def node_cells(node_graph: Tensor, node_pos: Tensor, max_nodes: int
+               ) -> Tensor:
+    """``[N]`` int64 row ``graph · max_nodes + position`` of each node."""
+    return node_graph.long() * max_nodes + node_pos.long()
+
+
+def dense_rows(t: Tensor, node_graph: Tensor, node_pos: Tensor,
+               num_graphs: int, max_nodes: int,
+               node_mask: Optional[Tensor] = None) -> Tensor:
+    """Rows ``t [N, C]`` scattered to ``[B, max_nodes, C]`` by node
+    (masked rows add zeros: padding nodes share a cell with a real one).
+    Its gradient is a row gather."""
+    if node_mask is not None:
+        t = torch.where(node_mask[:, None], t, 0.0)
+    out = t.new_zeros(num_graphs * max_nodes, t.shape[1])
+    out = out.index_add(0, node_cells(node_graph, node_pos, max_nodes), t)
+    return out.view(num_graphs, max_nodes, t.shape[1])

@@ -21,6 +21,8 @@ __all__ = [
     "add_remaining_self_loops",
     "use_kernel_spmm",
     "use_dense_pipeline",
+    "use_dense_vote",
+    "DENSE_VOTE_BUDGET",
     "spmm",
     "spmm_batch",
     "normalize_adj_sym",
@@ -136,6 +138,18 @@ def use_dense_pipeline(num_graphs: int, max_nodes: int,
     return (max_nodes <= DENSE_PIPELINE_MAX_NODES
             and num_graphs * max_nodes * max_nodes * itemsize
             <= DENSE_PIPELINE_MAX_ADJ_BYTES)
+
+
+#: the dense combinatorial engines' budget, carried over from the JAX
+#: package: the per-graph ``[B, Nmax, Nmax]`` loop runs while it holds at
+#: most 16M elements (64 MiB of int32)
+DENSE_VOTE_BUDGET = 2 ** 24
+
+
+def use_dense_vote(num_graphs: int, max_nodes: int) -> bool:
+    """Take the dense engines (matching, MIS) iff ``B·Nmax²`` fits
+    :data:`DENSE_VOTE_BUDGET` (static batch metadata only)."""
+    return num_graphs * max_nodes ** 2 <= DENSE_VOTE_BUDGET
 
 
 def spmm(senders, receivers, edge_weight, x, num_nodes: int, *,

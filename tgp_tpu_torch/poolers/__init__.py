@@ -1,6 +1,8 @@
 """Pooler registry and string-alias factory (port of
 ``tgp_tpu/poolers/__init__.py``): the score-and-keep poolers ``"topk"``,
-``"sag"``, ``"asap"`` and ``"pan"`` are ported so far.
+``"sag"``, ``"asap"`` and ``"pan"``, the clustering poolers ``"ec"``,
+``"graclus"``, ``"kmis"`` and ``"nopool"``, and LaPool (``"lap"``) are
+ported so far.
 
 ``get_pooler(alias, **kwargs)`` drops kwargs the pooler's constructor
 does not take, translates the reference spellings ``lift=`` and
@@ -14,17 +16,26 @@ import inspect
 from typing import Dict, Type
 
 from tgp_tpu_torch.poolers.asap import ASAPooling
+from tgp_tpu_torch.poolers.edge_contraction import EdgeContractionPooling
+from tgp_tpu_torch.poolers.graclus import GraclusPooling
+from tgp_tpu_torch.poolers.kmis import KMISPooling
+from tgp_tpu_torch.poolers.lapool import LaPooling
+from tgp_tpu_torch.poolers.nopool import NoPool
 from tgp_tpu_torch.poolers.pan import PANPooling
 from tgp_tpu_torch.poolers.sag import SAGPooling
 from tgp_tpu_torch.poolers.topk import TopkPooling
 from tgp_tpu_torch.src import SRCPooling
 
 __all__ = ["get_pooler", "pooler_map", "pooler_signature", "TopkPooling",
-           "SAGPooling", "ASAPooling", "PANPooling"]
+           "SAGPooling", "ASAPooling", "PANPooling",
+           "EdgeContractionPooling", "GraclusPooling", "KMISPooling",
+           "NoPool", "LaPooling"]
 
 _REGISTRY: Dict[str, Type[SRCPooling]] = {
     "topk": TopkPooling, "sag": SAGPooling, "asap": ASAPooling,
-    "pan": PANPooling}
+    "pan": PANPooling, "ec": EdgeContractionPooling,
+    "graclus": GraclusPooling, "kmis": KMISPooling, "nopool": NoPool,
+    "lap": LaPooling}
 
 
 def pooler_map() -> Dict[str, Type[SRCPooling]]:

@@ -1,23 +1,57 @@
-"""Reduce ``X' = SᵀX`` for sparse assignments (port of the sparse path of
-``tgp_tpu/reduce/base.py``)."""
+"""Reduce ``X' = SᵀX`` (port of ``tgp_tpu/reduce/base.py``): sparse
+assignments by a weighted segment sum, unbatched dense ``[N, K]``
+assignments by one batched product per graph.
+
+The unbatched path computes JAX's segment sum of per-node ``K×F`` outer
+products as ``S_gᵀ X_g``: the rows of ``S`` and ``X`` are scattered into
+``[B, max_nodes, ·]`` by each node's ``(graph, position)``
+(:func:`~tgp_tpu_torch.ops.segment.dense_rows`), so no ``[N, K, F]`` tensor is made.
+"""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from tgp_tpu_torch.ops.segment import segment_sum
+from tgp_tpu_torch.ops.segment import dense_rows, segment_sum
 from tgp_tpu_torch.select.base import SelectOutput
 
-__all__ = ["reduce_sparse", "base_reduce"]
+__all__ = ["reduce_sparse", "reduce_dense_unbatched", "base_reduce"]
+
+Tensor = torch.Tensor
 
 
-def reduce_sparse(x: torch.Tensor, so: SelectOutput) -> torch.Tensor:
+def reduce_sparse(x: Tensor, so: SelectOutput) -> Tensor:
     """``x_pool[c] = Σ_{i: cluster(i)=c} w_i · x_i`` (``[C, F]``)."""
     src = x * so.weight[:, None]
     return segment_sum(src, so.cluster_index, so.num_clusters,
                        mask=so.node_sel_mask)
 
 
-def base_reduce(x: torch.Tensor, so: SelectOutput) -> torch.Tensor:
-    """Dispatching reduce (sparse assignments only in this port so far)."""
-    return reduce_sparse(x, so)
+def reduce_dense_unbatched(x: Tensor, s: Tensor, node_graph: Tensor,
+                           num_graphs: int,
+                           node_mask: Optional[Tensor] = None,
+                           return_batched: bool = True, *, node_pos: Tensor,
+                           max_nodes: int) -> Tensor:
+    """``x_pool[g, k] = Σ_{i∈g} s[i, k] x[i]``: ``[B, K, F]``, or
+    ``[B·K, F]`` with ``return_batched=False``.  ``node_pos`` and
+    ``max_nodes`` (the batch's) place each node in its graph's block."""
+    place = (node_graph, node_pos, num_graphs, max_nodes, node_mask)
+    pooled = torch.matmul(dense_rows(s, *place).transpose(1, 2),
+                          dense_rows(x, *place))
+    return pooled if return_batched else pooled.reshape(-1, x.shape[-1])
+
+
+def base_reduce(x: Tensor, so: SelectOutput, *,
+                return_batched: bool = True) -> Tensor:
+    """Dispatching reduce: sparse or unbatched dense assignments."""
+    if so.is_sparse:
+        return reduce_sparse(x, so)
+    if so.assignment is None:
+        raise NotImplementedError(
+            "the batched dense reduce is not ported: the dense top-k path "
+            "pools through dense_topk_apply")
+    return reduce_dense_unbatched(
+        x, so.assignment, so.node_graph, so.num_graphs, so.node_mask,
+        return_batched, node_pos=so.node_pos, max_nodes=so.max_nodes)

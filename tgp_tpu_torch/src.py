@@ -1,5 +1,5 @@
-"""SRC(L) core (port of ``tgp_tpu/src.py``: ``PoolingOutput`` and
-``SRCPooling``; ``DenseSRCPooling`` comes with the dense pooler family)."""
+"""SRC(L) core (port of ``tgp_tpu/src.py``: ``PoolingOutput``,
+``SRCPooling`` and ``DenseSRCPooling``)."""
 
 from __future__ import annotations
 
@@ -10,12 +10,13 @@ import torch
 from torch import nn
 
 from tgp_tpu_torch.connect.base import ConnectConfig, sparse_connect
-from tgp_tpu_torch.graph import DenseGraphBatch, GraphBatch
+from tgp_tpu_torch.graph import (DenseGraphBatch, GraphBatch, from_dense,
+                                 to_dense)
 from tgp_tpu_torch.lift.base import base_lift
 from tgp_tpu_torch.reduce.base import base_reduce
 from tgp_tpu_torch.select.base import SelectOutput
 
-__all__ = ["PoolingOutput", "SRCPooling"]
+__all__ = ["PoolingOutput", "SRCPooling", "DenseSRCPooling"]
 
 Tensor = torch.Tensor
 
@@ -91,3 +92,31 @@ class SRCPooling(nn.Module):
             num_graphs=batch.num_graphs,
             max_nodes=so.max_clusters,
         )
+
+
+class DenseSRCPooling(SRCPooling):
+    """Base for dense-world poolers: they take a sparse
+    :class:`GraphBatch` and densify it (:meth:`ensure_dense`), or a
+    pre-densified :class:`DenseGraphBatch`; ``sparse_output`` poolers hand
+    their dense pooled graph back as a block-diagonal sparse batch
+    (:meth:`finalize_sparse_output`)."""
+
+    ACCEPTS_DENSE_BATCH = True
+
+    @staticmethod
+    def ensure_dense(batch, adj_transpose: bool = False) -> DenseGraphBatch:
+        """A dense batch as it is; a sparse one through
+        :func:`~tgp_tpu_torch.graph.to_dense`, its adjacency transposed
+        with ``adj_transpose``."""
+        if isinstance(batch, DenseGraphBatch):
+            return batch
+        dense = to_dense(batch)
+        if adj_transpose:
+            dense = dense.replace(adj=dense.adj.transpose(-1, -2))
+        return dense
+
+    @staticmethod
+    def finalize_sparse_output(dense: DenseGraphBatch) -> GraphBatch:
+        """Dense pooled ``[B, K, K]`` → block-diagonal sparse batch
+        (invalid supernodes masked, not dropped)."""
+        return from_dense(dense)
