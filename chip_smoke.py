@@ -79,21 +79,36 @@ each of which raises on failure:
    held against the CPU;
 10. the clustering poolers served and trained at the serving width:
    ``[serving_graclus]``, ``[serving_kmis]`` and ``[serving_ec]`` are
-   ``[serving]`` with that pooler (K1 once a request — the pooled graph is
-   sender-major with no CSR layout, so the post-pool GCN takes the
-   generic branch — and the readout's K4 once over the 65,536 cluster
-   slots, ``"long"``), each with its greedy loop's rounds, logits held to
-   the CPU, the cluster ids equal to the CPU's (Graclus's own run;
-   k-MIS's and edge contraction's on the card's ranks, which the CPU
-   reference takes: their scores pass through bf16 features) and whether
-   a repeated request gives the same bits reported; ``[train_ec]`` and
-   ``[train_kmis]`` are ``[train_sparse]`` with that model for 5 steps
-   (K1 twice and K4 once a step, step one on the card's ranks);
+   ``[serving]`` with that pooler (K1 once a request for the pre-pool
+   GCN; K4 on its ``"wide"`` route for the fixed-order sums — EC's
+   softmax normalizer, k-MIS's heuristic, the reduce's cluster sums, the
+   merge of duplicate edges — and on its ``"long"`` route once for the
+   readout over the 65,536 cluster slots; K2 twice, the post-pool GCN's
+   sorted branch on the receiver-major merged edges), each with its
+   greedy loop's rounds, logits held to the CPU, the cluster ids equal to
+   the CPU's (Graclus's own run; k-MIS's and edge contraction's on the
+   card's ranks, which the CPU reference takes: their scores pass through
+   bf16 features) and a repeated request required to give the same bits;
+   ``[train_ec]`` and ``[train_kmis]`` are ``[train_sparse]`` with that
+   model for 5 steps (K1 twice, K2 twice and K4 four times a step, step
+   one on the card's ranks);
    ``[train_lap]`` trains LaPool 5 steps (f32) through the classification
    twin's model with ``use_kernel=True`` on the dense cell's graphs
    collated sparse: its dense ``[64, 256, 256]`` pooled graph's GCN
    products run in K3, three a step, step one held against the CPU;
-11. the locality path on the union of the dense graphs (16,384 nodes):
+11. the dense soft-cluster family on the dense cell's graphs:
+   ``[train_mincut]`` trains ``PoolingClassifier`` with MinCut (K = 16,
+   f32, CE + its cut and ortho losses) 5 Adam steps on the batch
+   ``prepare_batch(..., pooler=<instance>, normalize=False)`` densifies
+   (K3 five times a step: both GCN layers' products forward, three
+   backward), ``[train_mincut_u]`` the same with ``"mincut_u"`` on the
+   graphs collated sparse by ``GraphLoader`` (its pooled ``[64, 16, 16]``
+   graph's GCN in K3, three a step), each with step one held against the
+   CPU and the losses finite; ``[dense_family]`` runs MinCut, DiffPool,
+   DMoN, HOSC, JustBalance and AsymCheegerCut, batched and ``_u``, one
+   forward each: every loss within 1e-4 of the CPU's, batched and ``_u``
+   within 5e-4 of each other;
+12. the locality path on the union of the dense graphs (16,384 nodes):
    ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
    engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
    ``sddmm_banded`` (K6) on the same plan, each held against the plain
@@ -101,9 +116,13 @@ each of which raises on failure:
 
 Every ``[kernels]`` row carries the card's ``nvidia-smi`` name and power
 limit; the kernels line counts K1's launches in sparse training, SAG's
-and the clustering poolers' serving and training, K4's there and in
-ASAP's and PAN's steps, K3's in dense training and LaPool's steps; the
-``launches:`` line gives each path's K1, K3 and K4.  The next-to-last line of output is a JSON object ``{"kernels":
+and the clustering poolers' serving and training, K2's in the clustering
+poolers' and the locality path, K4's in all of those and in ASAP's and
+PAN's steps, K3's in dense training, LaPool's and MinCut's steps; the
+``launches:`` line gives each path's K1, K2, K3 and K4.  K3's
+``[kernels]`` rows add MinCut's post-pool product ``[64, 16, 16] ·
+[64, 16, 128]`` and one batch of 70,000 products, split into two
+launches.  The next-to-last line of output is a JSON object ``{"kernels":
 [...]}``; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 without the rest of the repository, it exits non-zero and prints no
 result.
@@ -161,14 +180,21 @@ SPARSE_STEPS, K1_PER_STEP = 20, 5
 SAG_STEPS = 5
 # the clustering poolers (Graclus, k-MIS, edge contraction) on the same
 # graph: only the pre-pool GCN runs K1 (its product forward, its d_h
-# backward); the pooled graph is sender-major without a CSR layout, so the
-# post-pool GCN takes the generic branch, and the readout's K4 sums the
-# 65,536 cluster slots on its "long" route
+# backward); their sums add in a fixed order on K4's "wide" route (EC's
+# softmax normalizer and k-MIS's heuristic, one each; the cluster sums of
+# the reduce; the merge of duplicate edges), the merged pooled graph
+# ascends by receiver, so the post-pool GCN takes the sorted branch (K2
+# twice forward: its degree and aggregation; their gradients are
+# gathers), and the readout's K4 sums the 65,536 cluster slots on its
+# "long" route: a repeated request gives the same bits
 CLUSTERS = ("graclus", "kmis", "ec")
 CLUSTER_STEPS = 5
 K1_PER_REQUEST = {"topk": 3, "sag": 4, "graclus": 1, "kmis": 1, "ec": 1}
 K1_PER_TRAIN_STEP = {"topk": K1_PER_STEP, "sag": K1_PER_STEP + 2,
                      "kmis": 2, "ec": 2}
+K4_WIDE_PER_FORWARD = {"topk": 0, "sag": 0, "graclus": 2, "kmis": 3,
+                       "ec": 3}
+K2_PER_FORWARD = {"topk": 0, "sag": 0, "graclus": 2, "kmis": 2, "ec": 2}
 # edge contraction's scores are a softmax over each receiver's edges,
 # which a shift of every score leaves as it is: the scorer's bias takes a
 # zero gradient, held under its weight's gradient scale on both sides
@@ -182,10 +208,27 @@ K3_PER_LAP_STEP = 3
 # graphs collated sparse (below PALLAS_MIN_EDGES: no K1); launches a step
 SMALL_STEPS = 5
 SMALL_LAUNCHES = {"asap": {"sorted_segment_sum": 1},
-                  "pan": {"sorted_segment_sum": 1},
+                  # PANConv's to_dense sums duplicate edges on K4 too
+                  "pan": {"sorted_segment_sum": 2},
                   "lap": {"bmm": K3_PER_LAP_STEP}}
 # step one of training, GPU against the CPU's plain versions (bf16):
 LOSS_REL_TOL, GRAD_REL_TOL = 2e-2, 5e-2  # loss; each leaf's max |value|
+# the dense soft-cluster family on the dense cell's graphs: MinCut trained
+# batched and "_u" (K clusters, f32); its dense GCN products in K3 a step:
+# batched, the pre- and post-pool products forward and, backward, the
+# pre-pool feature gradient and both post-pool gradients (the pooled
+# adjacency depends on the features through S); "_u", the post-pool
+# layer's three (its sparse pre-pool layer, below PALLAS_MIN_EDGES,
+# launches nothing)
+DENSE_FAMILY = ("mincut", "diff", "dmon", "hosc", "jb", "acc")
+MINCUT_K, MINCUT_STEPS = 16, 5
+K3_PER_MINCUT_STEP = {"mincut": 5, "mincut_u": 3}
+# [dense_family]: each loss on the card within this of the CPU's
+# (relative), and batched against "_u" within the contract of
+# tests/poolers/test_dense_batched_vs_unbatched.py (rtol = atol)
+FAMILY_LOSS_REL_TOL, FAMILY_TWIN_TOL = 1e-4, 5e-4
+# K3 above the grid's z limit of 65,535 products: split into launches
+K3_SPLIT_BATCH = 70_000
 
 
 def request_graph(seed: int):
@@ -692,8 +735,12 @@ def phase_kernels_k3(adj):
     adjacency ``adj [64, 256, 256]`` (its top-left 128 × 128 blocks for
     the post-pool shape): the two forward products, the two backward
     ``db = aᵀ g`` with an f32 cotangent ``g``, and the ``trans_b`` mode
-    (``da = g bᵀ``, which the step does not run); then the default path's
-    products, with the adjacency and the features in f32.  Each row names
+    (``da = g bᵀ``, which the top-k step does not run); MinCut's
+    post-pool product on its pooled ``[64, 16, 16]`` graph in all three
+    modes its step runs (forward, ``db = aᵀ g``, and ``da = g bᵀ``, since
+    the pooled adjacency carries a gradient back to ``S``); then the
+    default path's products, with the adjacency and the features in f32.
+    Each row names
     its route and adds the kernel's time with a warm L2
     (``warm_l2_ms``), the ``"generic"`` route's time on a copy of ``a``
     one element off 16-byte alignment (``generic_ms``, held against the
@@ -714,6 +761,19 @@ def phase_kernels_k3(adj):
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, a, b, trans_a, trans_b
         ("fwd pre", adj, rnd(B, N, HIDDEN, dtype=bf16), False, False),
+        # MinCut's pooled graph [64, 16, 16] (f32, as the f32 model runs it)
+        ("fwd mincut post", torch.rand(B, MINCUT_K, MINCUT_K, generator=gen,
+                                       device="cuda"),
+         rnd(B, MINCUT_K, HIDDEN, dtype=f32), False, False),
+        ("bwd mincut post trans_a", torch.rand(B, MINCUT_K, MINCUT_K,
+                                               generator=gen, device="cuda"),
+         rnd(B, MINCUT_K, HIDDEN, dtype=f32), True, False),
+        ("bwd mincut post trans_b", rnd(B, MINCUT_K, HIDDEN, dtype=f32),
+         rnd(B, MINCUT_K, HIDDEN, dtype=f32), False, True),
+        # one batch above the grid's limit: two launches
+        ("fwd split batch", torch.rand(K3_SPLIT_BATCH, MINCUT_K, MINCUT_K,
+                                       generator=gen, device="cuda"),
+         rnd(K3_SPLIT_BATCH, MINCUT_K, HIDDEN, dtype=f32), False, False),
         ("fwd post", post, rnd(B, K2, HIDDEN, dtype=bf16), False, False),
         ("bwd pre trans_a", adj, rnd(B, N, HIDDEN, dtype=f32), True, False),
         ("bwd post trans_a", post, rnd(B, K2, HIDDEN, dtype=f32), True,
@@ -733,6 +793,7 @@ def phase_kernels_k3(adj):
     kw = {"out_dtype": f32} if out_f32 else {}
     modes = {}
     for name, a, b, ta, tb in cases:
+        B = a.shape[0]
         a_view = a.transpose(1, 2) if ta else a
         b_view = b.transpose(1, 2) if tb else b
         a_op, b_op = a_view.to(bf16), b_view.to(bf16)
@@ -750,7 +811,10 @@ def phase_kernels_k3(adj):
         torch.cuda.synchronize()
         _worst(f"{full} generic route", got, K.bmm_plain(a, b, ta, tb), scale,
                K3_REL_TOL)
+        before = K.bmm.launches
+        K.bmm(a, b, ta, tb)
         extra = {"route": K.route(a, b, ta, tb),
+                 "launches_per_call": K.bmm.launches - before,
                  "warm_l2_ms": median_ms(lambda: K.bmm(a, b, ta, tb), None),
                  "generic_ms": median_ms(lambda: K.bmm(skewed, b, ta, tb),
                                          flush)}
@@ -765,6 +829,10 @@ def phase_kernels_k3(adj):
             bound_bytes=nbytes, flops=2 * B * n * m * f,
             peak=BF16_TC_FLOPS_PER_S, scale=scale, flush=flush, note=note,
             extra=extra)
+    if modes["fwd split batch"]["launches_per_call"] != 2:
+        raise AssertionError(f"K3 at {K3_SPLIT_BATCH} products launched "
+                             f"{modes['fwd split batch']['launches_per_call']}"
+                             " times, want 2")
     del flush
     phase_k3_ragged()
     return modes
@@ -859,12 +927,12 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
     defaults a user gets, count the kernel launches, and hold the logits
     to the CPU.  ``alias="sag"`` serves SAG: its GraphConv scorer must run
     its ``A X`` in K1 (one more launch a request).  A clustering pooler
-    (``CLUSTERS``): K1 once a request, the greedy loop's rounds reported;
-    Graclus's clusters equal the CPU's own run, k-MIS's and edge
+    (``CLUSTERS``): K1 once, K4 ``K4_WIDE_PER_FORWARD`` times more on its
+    ``"wide"`` route and K2 twice a request, the greedy loop's rounds
+    reported; Graclus's clusters equal the CPU's own run, k-MIS's and edge
     contraction's the CPU's run on the card's ranks (the CPU reference
-    takes them); whether a repeated request gives the same bits is
-    reported (its duplicate-edge merge and post-pool GCN add by
-    ``index_add_``), where top-k and SAG must."""
+    takes them).  A repeated request must give the same bits (every sum
+    of each path has a fixed order)."""
     from tgp_tpu_torch import Predictor
 
     tag = "serving" if alias == "topk" else f"serving_{alias}"
@@ -898,23 +966,26 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
         req_ms.append(1e3 * (time.perf_counter() - t0))
     launches = read_counts()
     k4_routes = dict(_wrappers()["sorted_segment_sum"].launches_by_route)
+    wide = K4_WIDE_PER_FORWARD[alias] * REQUESTS
     want = dict.fromkeys(launches, 0)
     want.update(spmm_csr=k1_per_request * REQUESTS,
-                sorted_segment_sum=REQUESTS)
-    if launches != want or k4_routes != dict(long=REQUESTS, wide=0):
+                sorted_segment_sum=REQUESTS + wide,
+                segment_sum_sorted=K2_PER_FORWARD[alias] * REQUESTS)
+    if launches != want or k4_routes != dict(long=REQUESTS, wide=wide):
         raise AssertionError(f"{REQUESTS} requests launched {launches}, K4 "
-                             f"by route {k4_routes}, want {want} and every "
-                             "readout on the long route")
+                             f"by route {k4_routes}, want {want}, every "
+                             f"readout on the long route and {wide} wide")
     served = np.concatenate(served)
     if served.shape != (REQUESTS, CLASSES) or not np.isfinite(served).all():
         raise AssertionError(f"bad logits {served}")
-    # top-k and SAG: every sum of the path has a fixed order, so the same
-    # request gives the same bits
+    # every sum of the path has a fixed order, so the same request gives
+    # the same bits
     again = predictor([graphs[0]])
     repeat_equal = bool(np.array_equal(again[0], served[0]))
-    if not repeat_equal and not clustering:
+    if not repeat_equal:
         raise AssertionError(f"two requests on one graph differ: {again[0]} "
-                             f"vs {served[0]}")
+                             f"vs {served[0]} (max |diff| "
+                             f"{float(np.abs(again[0] - served[0]).max())})")
 
     fwd = []
     with torch.inference_mode():
@@ -952,6 +1023,7 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
         k4_launches_by_route=k4_routes,
         k1_launches_per_request=launches["spmm_csr"] / REQUESTS,
         k4_launches_per_request=launches["sorted_segment_sum"] / REQUESTS,
+        k2_launches_per_request=launches["segment_sum_sorted"] / REQUESTS,
         logits_first=served[0].tolist(), cpu_logits_first=ref[0].tolist(),
         max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=repeat_equal)
     if alias == "sag":
@@ -972,9 +1044,6 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
         result.update(rounds=rounds, clusters=int(out.so.out_mask().sum()),
                       cluster_ids_equal_cpu=True,
                       ranks_from="input" if alias == "graclus" else "card")
-        if repeat_equal is False:
-            result["repeat_max_abs_diff"] = float(
-                np.abs(again[0] - served[0]).max())
     print(f"[{tag}] {json.dumps(result)}", flush=True)
 
     if profile:
@@ -1228,7 +1297,9 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
     held against the CPU.  ``alias="sag"``: the SAG model, SAG_STEPS
     steps, two more K1 launches a step (its scorer's A X and gradient).
     ``"ec"``/``"kmis"``: CLUSTER_STEPS steps, K1 twice a step (the
-    pre-pool GCN), the CPU's step one on the card's step-one ranks."""
+    pre-pool GCN), K4 ``K4_WIDE_PER_FORWARD`` times more on its ``"wide"``
+    route and K2 twice (the fixed-order sums of the forward), the CPU's
+    step one on the card's step-one ranks."""
     from tgp_tpu_torch import from_graphs
 
     tag = "train_sparse" if alias == "topk" else f"train_{alias}"
@@ -1293,12 +1364,13 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
         raise AssertionError(f"K1 launches per step {per_step}, K4 on the "
                              f"long route {k4_per_step}, want {k1_per_step} "
                              "and 1")
-    if launches["sorted_segment_sum"] != steps:
-        raise AssertionError(f"K4 launched {launches['sorted_segment_sum']} "
-                             f"times in {steps} steps")
-    if any(n for name, n in launches.items()
-           if name not in ("spmm_csr", "sorted_segment_sum")):
-        raise AssertionError(f"unexpected launches {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update(spmm_csr=k1_per_step * steps,
+                sorted_segment_sum=(1 + K4_WIDE_PER_FORWARD[alias]) * steps,
+                segment_sum_sorted=K2_PER_FORWARD[alias] * steps)
+    if launches != want:
+        raise AssertionError(f"{steps} steps launched {launches}, want "
+                             f"{want}")
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite losses {losses}")
 
@@ -1451,6 +1523,189 @@ def phase_train_small(card, graphs, labels, which, profile: bool):
     if profile:
         result["profile"] = _idle_profile(step, 3, med, f"train_{which}")
     return result
+
+
+def _mincut_model(device, alias, seed=0):
+    """``PoolingClassifier`` over ``get_pooler(alias)`` (MinCut, K = 16)
+    at the dense cell's width, f32, its dense GCN products in K3."""
+    from tgp_tpu_torch import PoolingClassifier, get_pooler
+
+    g = torch.Generator().manual_seed(seed)
+    pooler = get_pooler(alias, in_channels=HIDDEN, k=MINCUT_K,
+                        device=device, generator=g)
+    return PoolingClassifier(pooler, num_classes=CLASSES, hidden=HIDDEN,
+                             in_channels=FEATURES, use_kernel=True,
+                             device=device, generator=g)
+
+
+def phase_train_mincut(card, graphs, labels, profile: bool, alias="mincut"):
+    """MinCut trains MINCUT_STEPS Adam steps (f32; CE + the pooler's cut
+    and ortho losses) on the dense cell's 64 graphs: batched
+    (``alias="mincut"``) on ``prepare_batch(..., pooler=<instance>,
+    normalize=False)``'s dense batch; ``"mincut_u"`` on the same graphs
+    collated sparse by ``GraphLoader`` (the instance keeps it sparse), its
+    pooled graph dense ``[64, 16, 16]``.  K3 ``K3_PER_MINCUT_STEP`` times a
+    step and no other kernel; step one's loss and gradients held against
+    the CPU; the losses finite."""
+    from tgp_tpu_torch import DenseGraphBatch, from_graphs, prepare_batch
+    from tgp_tpu_torch.data import GraphLoader
+
+    model = _mincut_model("cuda", alias)
+    if alias == "mincut":
+        raw = from_graphs(graphs, device="cuda")
+    else:
+        raw, _ = next(iter(GraphLoader(graphs, labels,
+                                       batch_size=len(graphs),
+                                       device="cuda")))
+    batch = prepare_batch(raw, pooler=model.pooler, normalize=False)
+    if isinstance(batch, DenseGraphBatch) != (alias == "mincut"):
+        raise AssertionError(f"{alias}: prepare_batch took the wrong route")
+    y = torch.tensor(labels, device="cuda").long()
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    K3 = _wrappers()["bmm"]
+
+    def loss_of(m, b, yy):
+        logits, out = m(b)
+        return (torch.nn.functional.cross_entropy(logits, yy)
+                + out.loss_sum()), out
+
+    def loss_and_grads(m, b, yy):
+        m.zero_grad(set_to_none=True)
+        loss, out = loss_of(m, b, yy)
+        loss.backward()
+        return loss.detach(), out, {k: v.grad.detach().float().clone()
+                                    for k, v in m.named_parameters()}
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss, out = loss_of(model, batch, y)
+        loss.backward()
+        opt.step()
+        return loss.detach(), out
+
+    # the main path, counted
+    reset_counts()
+    step_ms, losses, per_step, aux = [], [], [], []
+    for i in range(MINCUT_STEPS):
+        before = K3.launches
+        if i == 0:
+            def first():
+                got = loss_and_grads(model, batch, y)
+                opt.step()
+                return got
+
+            ms, (loss, out, grads0) = _timed_step(first)
+            grads0 = {k: v.cpu() for k, v in grads0.items()}
+            loss0 = float(loss)
+        else:
+            ms, (loss, out) = _timed_step(step)
+        step_ms.append(ms)
+        losses.append(float(loss))
+        per_step.append(K3.launches - before)
+        aux.append({k: float(v.detach()) for k, v in out.loss.items()})
+    launches = read_counts()
+    k3_routes = dict(K3.launches_by_route)
+    want = dict.fromkeys(launches, 0)
+    want["bmm"] = K3_PER_MINCUT_STEP[alias] * MINCUT_STEPS
+    if launches != want or per_step != [K3_PER_MINCUT_STEP[alias]] * \
+            MINCUT_STEPS:
+        raise AssertionError(f"{alias}: {MINCUT_STEPS} steps launched "
+                             f"{launches} ({per_step} K3 a step), want "
+                             f"{want}")
+    if not np.isfinite(losses).all() or not all(
+            np.isfinite(a["cut_loss"]) and np.isfinite(a["ortho_loss"])
+            for a in aux):
+        raise AssertionError(f"{alias}: non-finite losses {losses} {aux}")
+
+    cpu = _mincut_model("cpu", alias)
+    cpu.load_state_dict(init)
+    cpu_loss, _, cpu_grads = loss_and_grads(cpu, batch.to("cpu"), y.cpu())
+    cpu_loss = float(cpu_loss)
+    loss_err, grad_err = _step_one_errors(f"{alias}: step one", loss0,
+                                          grads0, cpu_loss, cpu_grads)
+    med = statistics.median(step_ms)
+    result = dict(
+        card=card, graphs=len(graphs), k=MINCUT_K, steps=MINCUT_STEPS,
+        dense_batch=isinstance(batch, DenseGraphBatch), step_ms=step_ms,
+        step_ms_median=med, losses=losses, aux_losses=aux,
+        launches=launches, k3_launches_per_step=per_step,
+        k3_launches_by_route=k3_routes, step1_loss=loss0,
+        step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
+        loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
+        grad_rel_tol=GRAD_REL_TOL)
+    tag = f"train_{alias}"
+    print(f"[{tag}] {json.dumps(result)}", flush=True)
+    if profile:
+        result["profile"] = _idle_profile(step, 3, med, tag)
+    return result
+
+
+def phase_dense_family(card, graphs):
+    """Each dense soft-cluster pooler, batched and ``_u``, one forward on
+    the dense cell's raw graphs (F = 128, K = 16): every loss within
+    FAMILY_LOSS_REL_TOL of the same pooler's on the CPU, and the batched
+    and unbatched losses, pooled features and pooled adjacency within
+    FAMILY_TWIN_TOL of each other on the card."""
+    from tgp_tpu_torch import from_graphs, get_pooler, prepare_batch
+
+    inputs = {}
+    for dev in ("cuda", "cpu"):
+        sparse = from_graphs(graphs, device=dev)
+        inputs[dev] = {True: prepare_batch(sparse, densify=True),
+                       False: sparse}
+    rows = []
+    for alias in DENSE_FAMILY:
+        outs = {}
+        for batched in (True, False):
+            for dev in ("cuda", "cpu"):
+                pooler = get_pooler(alias, in_channels=FEATURES, k=MINCUT_K,
+                                    batched=batched, device=dev,
+                                    generator=torch.Generator()
+                                    .manual_seed(3))
+                with torch.no_grad():
+                    if dev == "cuda":
+                        ms, out = _timed_step(
+                            lambda: pooler(inputs[dev][batched]))
+                    else:
+                        out = pooler(inputs[dev][batched])
+                outs[batched, dev] = out
+            mode = "batched" if batched else "u"
+            gpu, cpu = outs[batched, "cuda"], outs[batched, "cpu"]
+            errs = {k: abs(float(v) - float(cpu.loss[k]))
+                    / max(abs(float(cpu.loss[k])), 1e-30)
+                    for k, v in gpu.loss.items()}
+            bad = {k: e for k, e in errs.items()
+                   if not e <= FAMILY_LOSS_REL_TOL}
+            if bad or set(gpu.loss) != set(cpu.loss):
+                raise AssertionError(f"{alias} {mode}: losses on the card vs "
+                                     f"the CPU {bad} > {FAMILY_LOSS_REL_TOL}")
+            rows.append(dict(pooler=alias, mode=mode, forward_ms=ms,
+                             losses={k: float(v) for k, v in
+                                     gpu.loss.items()},
+                             loss_rel_err_vs_cpu=errs))
+        ob, ou = outs[True, "cuda"], outs[False, "cuda"]
+        twin = {}
+        for name in ob.loss:
+            twin[name] = abs(float(ob.loss[name]) - float(ou.loss[name]))
+            if twin[name] > FAMILY_TWIN_TOL * (1 + abs(float(ou.loss[name]))):
+                raise AssertionError(f"{alias}: batched {name} "
+                                     f"{float(ob.loss[name])} vs _u "
+                                     f"{float(ou.loss[name])}")
+        for f in ("x", "adj"):
+            a, b = getattr(ob.dense, f), getattr(ou.dense, f)
+            twin[f] = float((a - b).abs().max())
+            if not torch.allclose(a, b, rtol=FAMILY_TWIN_TOL,
+                                  atol=FAMILY_TWIN_TOL):
+                raise AssertionError(f"{alias}: batched and _u pooled {f} "
+                                     f"differ by {twin[f]}")
+        if not torch.equal(ob.dense.mask, ou.dense.mask):
+            raise AssertionError(f"{alias}: batched and _u masks differ")
+        rows[-1]["batched_vs_u_max_abs"] = twin
+    print(f"[dense_family] {json.dumps(dict(card=card, rows=rows))}",
+          flush=True)
+    return rows
 
 
 def phase_locality(card, graphs):
@@ -1612,14 +1867,21 @@ def main(argv=None) -> int:
                 for alias in ("ec", "kmis")}
     small["lap"] = phase_train_small(card, d_graphs, d_labels, "lap",
                                      args.profile)
+    mincut = {alias: phase_train_mincut(card, d_graphs, d_labels,
+                                        args.profile, alias)
+              for alias in ("mincut", "mincut_u")}
+    phase_dense_family(card, d_graphs)
     locality = phase_locality(card, d_graphs)
     # the main paths' launches: K1 in sparse training, SAG's serving and
-    # training and the clustering poolers'; K4 (the readout) there and in
-    # ASAP's and PAN's steps; K3 in dense training and LaPool's steps
+    # training and the clustering poolers'; K2 in the clustering poolers'
+    # post-pool GCN and the locality path; K4 (the readout) in all of
+    # those, and the clustering poolers' fixed-order sums, ASAP's and
+    # PAN's steps; K3 in dense training, LaPool's and MinCut's steps
     k1_runs = (sparse, serving_sag, train_sag, *serving_cl.values(),
                *train_cl.values())
+    k2_runs = (*serving_cl.values(), *train_cl.values())
     k4_runs = k1_runs + (small["asap"], small["pan"])
-    k3_runs = (train, small["lap"])
+    k3_runs = (train, small["lap"], *mincut.values())
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -1635,7 +1897,8 @@ def main(argv=None) -> int:
               sum(r["launches"]["spmm_csr"] for r in k1_runs),
               modes[f"K1 spmm_csr F={FEATURES} bfloat16"]),
         entry("segment_sum_sorted", SOURCE, K2_REPLACES,
-              loc["segment_sum_sorted"],
+              loc["segment_sum_sorted"]
+              + sum(r["launches"]["segment_sum_sorted"] for r in k2_runs),
               modes[f"K2 segment_sum_sorted F={FEATURES} bfloat16"]),
         entry("bmm", K3_SOURCE, K3_REPLACES,
               sum(r["launches"]["bmm"] for r in k3_runs),
@@ -1660,9 +1923,12 @@ def main(argv=None) -> int:
             *((f"{alias} training", r, f"{CLUSTER_STEPS} steps")
               for alias, r in train_cl.items()),
             ("dense training", train, f"{DENSE_STEPS} steps"),
-            ("LaPool training", small["lap"], f"{SMALL_STEPS} steps"))
+            ("LaPool training", small["lap"], f"{SMALL_STEPS} steps"),
+            *((f"{alias} training", r, f"{MINCUT_STEPS} steps")
+              for alias, r in mincut.items()))
     print("launches: " + "; ".join(
-        f"{name} K1 {r['launches']['spmm_csr']}, K3 "
+        f"{name} K1 {r['launches']['spmm_csr']}, K2 "
+        f"{r['launches']['segment_sum_sorted']}, K3 "
         f"{r['launches']['bmm']}, K4 "
         f"{r['launches']['sorted_segment_sum']} for {unit}"
         for name, r, unit in runs), flush=True)

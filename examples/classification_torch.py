@@ -6,8 +6,9 @@ linear head, trained with Adam.
     python -m examples.classification_torch asap --device cpu
 
 Poolers: the port's ``get_pooler`` aliases (``topk``, ``sag``, ``asap``,
-``pan``, ``ec``, ``graclus``, ``kmis``, ``nopool``, ``lap``).  Only the
-``synthetic`` dataset is ported so far.
+``pan``, ``ec``, ``graclus``, ``kmis``, ``nopool``, ``lap``, ``mincut``,
+``diff``, ``dmon``, ``hosc``, ``jb``, ``acc``, the last six also as
+``<alias>_u``).  Only the ``synthetic`` dataset is ported so far.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from tgp_tpu_torch._device import resolve_device
 from tgp_tpu_torch.data.loaders import GraphLoader, compute_budgets
 from tgp_tpu_torch.datasets import SyntheticGraphClassification
 from tgp_tpu_torch.poolers import get_pooler
+from tgp_tpu_torch.src import DenseSRCPooling
 
 #: which pipeline the last ``main()`` run took ("dense" | "sparse")
 LAST_ROUTE = None
@@ -80,20 +82,27 @@ def main(alias: str = "topk", epochs: int = 20, batch_size: int = 32,
     test_loader = GraphLoader(graphs[n_train:], labels[n_train:], **budget)
 
     # the regime map densifies a batch of small graphs once, on the way into
-    # the step, for a pooler that takes a dense batch (top-k); the other
-    # poolers, LaPool among them, keep the batch sparse
-    pooler_cls = type(get_pooler(alias, in_channels=hidden, device="cpu"))
+    # the step, for a pooler instance that takes a dense batch (top-k, the
+    # batched dense family); the other poolers (LaPool, the "_u" modes)
+    # keep the batch sparse.  The dense family's losses read the raw
+    # adjacency, so only the other poolers get it GCN-normalized.
+    batch0, _ = next(iter(train_loader))
+    model = build_model(alias, num_classes, hidden, batch0.num_features,
+                        device=device, seed=seed)
+    global LAST_ROUTE
+    LAST_ROUTE = ("dense" if isinstance(
+        prepare_batch(batch0, pooler=model.pooler), DenseGraphBatch)
+        else "sparse")
+    normalize = (LAST_ROUTE == "dense"
+                 and not isinstance(model.pooler, DenseSRCPooling))
+    if normalize:  # the same weights; the pre layers skip normalization
+        model = build_model(alias, num_classes, hidden,
+                            batch0.num_features, pre_normalized=True,
+                            device=device, seed=seed)
 
     def prep(b):
-        return prepare_batch(b, pooler=pooler_cls, normalize=True)
+        return prepare_batch(b, pooler=model.pooler, normalize=normalize)
 
-    batch0, _ = next(iter(train_loader))
-    global LAST_ROUTE
-    LAST_ROUTE = ("dense" if isinstance(prep(batch0), DenseGraphBatch)
-                  else "sparse")
-    model = build_model(alias, num_classes, hidden, batch0.num_features,
-                        pre_normalized=LAST_ROUTE == "dense", device=device,
-                        seed=seed)
     if verbose:
         print(f"[{alias}] pipeline: {LAST_ROUTE} on {device}")
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)

@@ -126,13 +126,30 @@ def _check_so(got, ref, what=""):
         ref.num_clusters, ref.max_clusters, ref.partial)
 
 
+def _edge_set(g):
+    """The valid edges of a pooled graph as ``(senders, receivers)`` and
+    weights, in ``(sender, receiver)`` order."""
+    m = _np(g.edge_mask).astype(bool)
+    s, r = _np(g.senders)[m], _np(g.receivers)[m]
+    o = np.lexsort((r, s))
+    return np.stack([s[o], r[o]]), _np(g.edge_weight)[m][o]
+
+
 def _check_pooled(tout, jout, what=""):
+    """Pooled nodes field by field; the merged edges as a set (the port
+    merges receiver-major, JAX sender-major), same edge budget, each
+    masked slot of weight 0."""
     tg, jg = tout.graph, jout.graph
     _close(tg.x, jg.x, what=f"{what} x")
-    for f in ("senders", "receivers", "edge_mask", "node_mask",
-              "node_graph", "node_pos"):
+    for f in ("node_mask", "node_graph", "node_pos"):
         _equal(getattr(tg, f), getattr(jg, f), f"{what} {f}")
-    _close(tg.edge_weight, jg.edge_weight, what=f"{what} edge_weight")
+    (te, tw), (je, jw) = _edge_set(tg), _edge_set(jg)
+    _equal(te, je, f"{what} edges")
+    _close(tw, jw, what=f"{what} edge_weight")
+    assert tg.num_edges == jg.senders.shape[0]
+    assert not _np(tg.edge_weight)[~_np(tg.edge_mask).astype(bool)].any()
+    # the port's merged edges ascend by receiver, flagged for GCNConv
+    assert tg.edges_sorted and (np.diff(_np(tg.receivers)) >= 0).all()
     assert (tg.num_graphs, tg.max_nodes) == (jg.num_graphs, jg.max_nodes)
 
 
@@ -605,16 +622,19 @@ def test_served_configuration_matches_jax(alias, jax_csr):
 def test_cluster_model_runs_one_k1_pass_each_way(alias, monkeypatch):
     """The counts ``chip_smoke.py`` asserts for the clustering poolers:
     the pre-pool GCN's product on the CSR branch (K1 once forward, its
-    ``d_h`` once backward), the readout's K4 once; the pooled graph is
-    sender-major with no CSR layout, so the post-pool GCN takes the
-    generic branch."""
+    ``d_h`` once backward); the fixed-order sums of the pooler on K4
+    (EC's softmax normalizer, k-MIS's greedy heuristic, the cluster sums
+    of the reduce, the merge of duplicate edges); the merged pooled graph
+    ascends by receiver, so the post-pool GCN takes the sorted branch (its
+    degree and aggregation on K2, as on the card, where its edge count
+    puts it in the kernel regime); the readout's K4 once."""
     import tgp_tpu_torch.ops.kernels.segment_spmm as K
 
     _, tb = _batches(_graphs(20, count=2), sort=True)
     tm = PoolingClassifier(get_pooler(alias, in_channels=8, **CPU),
                            num_classes=3, hidden=8, in_channels=F_IN,
                            use_kernel=None, **CPU)
-    for conv in tm.pre_convs:
+    for conv in (*tm.pre_convs, *tm.post_convs):
         conv.use_kernel = True
     calls = []
     real, real_k4 = K._csr_sum, K._k4_sum
@@ -630,8 +650,12 @@ def test_cluster_model_runs_one_k1_pass_each_way(alias, monkeypatch):
     monkeypatch.setattr(K, "_csr_sum", spy)
     monkeypatch.setattr(K, "_k4_sum", spy_k4)
     logits, out = tm(tb)
-    assert not out.graph.edges_sorted and out.graph.row_ptr is None
-    assert calls == ["spmm_csr", "sorted_segment_sum"]
+    assert out.graph.edges_sorted and out.graph.row_ptr is None
+    k4 = ["sorted_segment_sum"]
+    select = {"ec": k4, "graclus": [], "kmis": k4}[alias]
+    forward = (["spmm_csr"] + select + k4 * 2
+               + ["segment_sum_sorted"] * 2 + k4)
+    assert calls == forward
     torch.nn.functional.cross_entropy(
         logits, torch.tensor([0, 2]).long()).backward()
-    assert calls == ["spmm_csr", "sorted_segment_sum", "spmm_csr"]
+    assert calls == forward + ["spmm_csr"]

@@ -1121,9 +1121,12 @@ def test_cuda_mis_matches_cpu_on_the_same_ranks(impl, order_k):
 @pytest.mark.cuda
 def test_cuda_served_graclus_request_counts():
     """A Graclus model served by ``Predictor`` in the CSR regime (E ≥
-    2¹⁸, sorted): K1 once (the pre-pool GCN) and the readout's K4 once a
-    request, no other kernel; the clusters equal the CPU's and the logits
-    lie within 2% of the CPU's logit scale."""
+    2¹⁸, sorted): K1 once (the pre-pool GCN); K4 three times (the cluster
+    sums, the merge of duplicate edges, the readout); K2 twice (the
+    post-pool GCN's degree and aggregation on the receiver-major merged
+    edges, the sorted branch); no K3.  The clusters equal the CPU's, the
+    logits lie within 2% of the CPU's logit scale, and a repeated request
+    gives the same bits."""
     from tgp_tpu_torch.models.classifiers import PoolingClassifier
     from tgp_tpu_torch.models.inference import Predictor
     from tgp_tpu_torch.poolers import get_pooler
@@ -1143,13 +1146,15 @@ def test_cuda_served_graclus_request_counts():
                      sort_edges=True, device="cuda")
     pred([graph])
     k1, k4 = K.spmm_csr.launches, K.sorted_segment_sum.launches
-    others = (K.segment_sum_sorted.launches, BMM.bmm.launches)
+    k2, k3 = K.segment_sum_sorted.launches, BMM.bmm.launches
     logits = pred([graph])
     assert K.spmm_csr.launches == k1 + 1
-    assert K.sorted_segment_sum.launches == k4 + 1
-    assert (K.segment_sum_sorted.launches, BMM.bmm.launches) == others
-    for conv in models["cpu"].pre_convs:
-        conv.use_kernel = True  # the CSR branch's plain version
+    assert K.sorted_segment_sum.launches == k4 + 3
+    assert K.segment_sum_sorted.launches == k2 + 2
+    assert BMM.bmm.launches == k3
+    assert np.array_equal(pred([graph]), logits)
+    for conv in (*models["cpu"].pre_convs, *models["cpu"].post_convs):
+        conv.use_kernel = True  # the sorted branches' plain versions
     cpu = Predictor(lambda b: models["cpu"](b)[0], batch_size=1,
                     sort_edges=True, device="cpu")
     ref = cpu([graph])
@@ -1163,3 +1168,165 @@ def test_cuda_served_graclus_request_counts():
         so_cpu = models["cpu"](from_graphs([graph], sort_edges=True,
                                            device="cpu"))[1].so
     assert torch.equal(so_gpu.cluster_index.cpu(), so_cpu.cluster_index)
+
+
+# ---------------------------------------------------------------------------
+# fixed-order sums: a repeat gives the same bits
+# ---------------------------------------------------------------------------
+
+
+def _twice(fn):
+    """``fn()`` run twice on the card, each result copied to the CPU."""
+    out = []
+    for _ in range(2):
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        out.append(tuple(t.detach().cpu() for t in got))
+    return out
+
+
+def _bit_equal(runs):
+    a, b = runs
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_cuda_coalesce_repeats_bit_equal(reduce):
+    """The merge of many duplicate edges (200,000 over 300 nodes) sums
+    each run by K4 in run order: two calls give the same bits, equal to
+    the CPU's merge within f32 rounding, ascending by receiver."""
+    from tgp_tpu_torch.ops.sparse import coalesce
+
+    _skip_without_card()
+    rng = np.random.default_rng(31)
+    n, e = 300, 200_000
+    args = [torch.tensor(rng.integers(0, n, e), dtype=torch.int32),
+            torch.tensor(rng.integers(0, n, e), dtype=torch.int32),
+            torch.tensor(rng.normal(size=e).astype(np.float32)),
+            torch.tensor(rng.random(e) < 0.9)]
+    kw = dict(reduce=reduce)
+    gpu = [a.cuda() for a in args]
+    before = K.sorted_segment_sum.launches
+    runs = _twice(lambda: coalesce(*gpu, n, **kw))
+    assert K.sorted_segment_sum.launches > before
+    _bit_equal(runs)
+    ref = coalesce(*args, n, **kw)
+    for got, want in zip(runs[0], ref):
+        if got.dtype == torch.float32:
+            assert (got - want).abs().max() <= 1e-4
+        else:
+            assert torch.equal(got, want)
+    assert (runs[0][1].diff() >= 0).all()
+
+
+def _dup_graphs(seed, count=8, n=200, e=3000, feat=16):
+    """Graphs whose edge lists repeat edges (summed by ``to_dense``)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        s, r = rng.integers(0, n, e), rng.integers(0, n, e)
+        s, r = np.concatenate([s, s[:e // 3]]), np.concatenate([r, r[:e // 3]])
+        out.append((rng.normal(size=(n, feat)).astype(np.float32),
+                    np.stack([s, r]),
+                    rng.normal(size=s.shape[0]).astype(np.float32)))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_to_dense_repeats_bit_equal():
+    """``to_dense`` on a batch with duplicate edges: features and mask by
+    indexed writes, the duplicates summed by K4 in a fixed order; two
+    calls give the same bits, the features and mask equal the CPU's and
+    the adjacency matches within f32 rounding."""
+    from tgp_tpu_torch.graph import from_graphs, to_dense
+
+    _skip_without_card()
+    graphs = _dup_graphs(32)
+    gpu = from_graphs(graphs, device="cuda")
+    before = K.sorted_segment_sum.launches
+    runs = _twice(lambda: (lambda d: (d.x, d.adj, d.mask))(to_dense(gpu)))
+    assert K.sorted_segment_sum.launches == before + 2
+    _bit_equal(runs)
+    ref = to_dense(from_graphs(graphs, device="cpu"))
+    assert torch.equal(runs[0][0], ref.x) and torch.equal(runs[0][2],
+                                                          ref.mask)
+    assert (runs[0][1] - ref.adj).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_post_pool_gcn_on_merged_edges_is_bit_equal():
+    """A Graclus pooled graph at the kernel regime's edge count: its
+    merged edges ascend by receiver, so ``GCNConv`` takes the sorted
+    branch (K2 twice: the degree and the aggregation), and two forwards
+    give the same bits, within bf16 rounding of the CPU's."""
+    from tgp_tpu_torch.graph import from_graphs
+    from tgp_tpu_torch.mp.gcn import GCNConv
+    from tgp_tpu_torch.poolers import get_pooler
+
+    _skip_without_card()
+    rng = np.random.default_rng(33)
+    n, e = 20_000, 300_000
+    graph = (rng.normal(size=(n, 32)).astype(np.float32),
+             np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        batch = from_graphs([graph], sort_edges=True, device=dev)
+        pooled = get_pooler("graclus", device=dev)(batch).graph
+        assert pooled.edges_sorted and (pooled.receivers.diff() >= 0).all()
+        conv = GCNConv(32, 32, dtype=torch.bfloat16, use_kernel=True,
+                       device=dev, generator=torch.Generator().manual_seed(0))
+        before = K.segment_sum_sorted.launches
+        with torch.no_grad():
+            outs[dev] = _twice(lambda: conv(pooled).float())
+        if dev == "cuda":
+            assert K.segment_sum_sorted.launches == before + 4
+    _bit_equal(outs["cuda"])
+    got, ref = outs["cuda"][0][0], outs["cpu"][0][0]
+    assert (got - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_kmis_and_edge_contraction_sums_are_bit_equal():
+    """k-MIS's heuristic (the score-weighted one, whose sums are not
+    integers) and edge contraction's per-receiver softmax add in a fixed
+    order: two calls give the same bits, within f32 rounding of the
+    CPU's."""
+    from tgp_tpu_torch.graph import from_graphs
+    from tgp_tpu_torch.select.edge_contraction import EdgeContractionSelect
+    from tgp_tpu_torch.select.kmis import KMISSelect
+
+    _skip_without_card()
+    rng = np.random.default_rng(34)
+    n, e = 20_000, 300_000
+    graph = (rng.normal(size=(n, 16)).astype(np.float32),
+             np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        batch = from_graphs([graph], sort_edges=True, device=dev)
+        g = torch.Generator().manual_seed(0)
+        kmis = KMISSelect(16, score_heuristic="w", order_k=2, device=dev,
+                          generator=g)
+        ec = EdgeContractionSelect(16, device=dev, generator=g)
+        with torch.no_grad():
+            score = kmis._score(batch)
+            outs[dev] = _twice(lambda: (kmis._heuristic(score, batch),
+                                        ec.edge_score(batch)))
+    _bit_equal(outs["cuda"])
+    for got, ref in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert (got - ref).abs().max() <= 1e-5 * max(ref.abs().max(), 1)
+
+
+@pytest.mark.cuda
+def test_cuda_bmm_splits_batches_above_the_grid_limit():
+    """70,000 products (the grid's z dimension holds 65,535): two counted
+    launches, each slice on its own route, equal to ``bmm_plain``."""
+    _skip_without_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = _bmm_operands(70_000, 8, 16, 8, False, False, "bfloat16")
+    before = BMM.bmm.launches
+    got = BMM.bmm(a, b)
+    torch.cuda.synchronize()
+    assert BMM.bmm.launches == before + 2
+    assert BMM.MAX_BATCH == 65_535 and got.shape == (70_000, 8, 8)
+    _bmm_check(got, BMM.bmm_plain(a, b), BMM.bmm_plain(a.abs(), b.abs()))

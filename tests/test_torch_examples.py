@@ -19,11 +19,14 @@ torch.set_num_threads(1)
                                          ("ec", "sparse"),
                                          ("graclus", "sparse"),
                                          ("kmis", "sparse"),
-                                         ("lap", "sparse")])
+                                         ("lap", "sparse"),
+                                         ("mincut", "dense"),
+                                         ("mincut_u", "sparse")])
 def test_classification_twin_trains(alias, route):
     acc = ex.main(alias, epochs=2, verbose=False, device="cpu")
     assert acc > 0.6
-    # top-k takes a dense batch, the other poolers stay sparse
+    # top-k and the batched dense family take a dense batch, the other
+    # poolers (and the "_u" modes) stay sparse
     assert ex.LAST_ROUTE == route
 
 

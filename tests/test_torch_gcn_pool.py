@@ -263,7 +263,9 @@ def test_auto_pool_mode(monkeypatch):
 
 def test_get_pooler_factory():
     assert set(pooler_map()) == {"topk", "sag", "asap", "pan", "ec",
-                                 "graclus", "kmis", "nopool", "lap"}
+                                 "graclus", "kmis", "nopool", "lap",
+                                 "mincut", "diff", "dmon", "hosc", "jb",
+                                 "acc"}
     p = t_get("topk_u", in_channels=8, ratio=0.3, nonlinearity="relu",
               not_an_arg=1, device="cpu")
     assert p.ratio == 0.3 and p.selector.act == "relu"

@@ -23,8 +23,8 @@ from tgp_tpu_torch.graph import from_graphs as t_from
 from tgp_tpu_torch.poolers import get_pooler as t_get
 from tgp_tpu_torch.reduce.global_reduce import global_reduce as t_readout
 
-# the module (the package's ``global_reduce`` name is the function)
-t_gr = importlib.import_module("tgp_tpu_torch.reduce.global_reduce")
+# the module the readout's fixed-order sum lives in
+t_seg = importlib.import_module("tgp_tpu_torch.ops.segment")
 torch.set_num_threads(1)
 REL_TOL = 1e-5
 
@@ -178,9 +178,16 @@ def test_sparse_readout_takes_sorted_segment_sum(monkeypatch, op):
     def refuse(*a, **kw):
         raise AssertionError("the readout took another sum")
 
+    real_sum = t_seg.segment_sum
+
+    def refuse_rows(data, *a, **kw):  # the counts may still add integers
+        if data.dtype.is_floating_point:
+            raise AssertionError("the readout summed rows by index_add_")
+        return real_sum(data, *a, **kw)
+
     monkeypatch.setattr(K, "_k4_sum", spy)
     monkeypatch.setattr(K, "_csr_sum", refuse)
-    monkeypatch.setattr(t_gr, "segment_sum", refuse)
+    monkeypatch.setattr(t_seg, "segment_sum", refuse_rows)
     x, ng, nm, b = _padded(np.random.default_rng(9))
     tx = torch.tensor(x, requires_grad=True)
     _torch(tx, ng, nm, b, op).sum().backward()

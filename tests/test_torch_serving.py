@@ -154,7 +154,12 @@ assert {'tgp_tpu_torch.ops.kernels.bmm', 'tgp_tpu_torch.models.prepare',
         'tgp_tpu_torch.data.transforms', 'tgp_tpu_torch.datasets.synthetic',
         'tgp_tpu_torch.mp.leconv', 'tgp_tpu_torch.mp.pan',
         'tgp_tpu_torch.poolers.sag', 'tgp_tpu_torch.poolers.asap',
-        'tgp_tpu_torch.poolers.pan'} <= set(mods), mods
+        'tgp_tpu_torch.poolers.pan', 'tgp_tpu_torch.losses',
+        'tgp_tpu_torch.select.mlp', 'tgp_tpu_torch.poolers.dense_base',
+        'tgp_tpu_torch.poolers.mincut', 'tgp_tpu_torch.poolers.diffpool',
+        'tgp_tpu_torch.poolers.dmon', 'tgp_tpu_torch.poolers.hosc',
+        'tgp_tpu_torch.poolers.just_balance',
+        'tgp_tpu_torch.poolers.asym_cheeger_cut'} <= set(mods), mods
 import examples.classification_torch
 import examples.classification_pan_torch
 bad = sorted(m for m in sys.modules
@@ -169,6 +174,8 @@ for call in (lambda: tgp_tpu_torch.from_graphs(g),
              lambda: tgp_tpu_torch.get_pooler('sag', in_channels=4),
              lambda: tgp_tpu_torch.get_pooler('asap', in_channels=4),
              lambda: tgp_tpu_torch.get_pooler('pan', in_channels=4),
+             lambda: tgp_tpu_torch.get_pooler('mincut', in_channels=4),
+             lambda: tgp_tpu_torch.get_pooler('acc_u', in_channels=4),
              lambda: GraphLoader(g),
              lambda: examples.classification_torch.main('sag', epochs=1),
              lambda: tgp_tpu_torch.PoolingClassifier(None, 3, hidden=4),

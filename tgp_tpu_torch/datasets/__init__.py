@@ -1,5 +1,6 @@
-"""Datasets (port of ``tgp_tpu/datasets``; the local synthetic generator
+"""Datasets (port of ``tgp_tpu/datasets``; the local synthetic generators
 so far)."""
-from tgp_tpu_torch.datasets.synthetic import SyntheticGraphClassification
+from tgp_tpu_torch.datasets.synthetic import (SyntheticGraphClassification,
+                                              csbm_graph)
 
-__all__ = ["SyntheticGraphClassification"]
+__all__ = ["SyntheticGraphClassification", "csbm_graph"]

@@ -1,6 +1,7 @@
-"""Synthetic graph classification (port of
-``tgp_tpu/datasets/synthetic.py::SyntheticGraphClassification``): numpy
-generators, the same graphs and labels as the JAX package's for a seed."""
+"""Synthetic graph classification and one contextual-SBM graph (port of
+``tgp_tpu/datasets/synthetic.py``: ``SyntheticGraphClassification``,
+``csbm_graph``): numpy generators, the same graphs and labels as the JAX
+package's for a seed."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-__all__ = ["SyntheticGraphClassification"]
+__all__ = ["SyntheticGraphClassification", "csbm_graph"]
 
 
 def _er_graph(rng, n, p):
@@ -84,3 +85,21 @@ class SyntheticGraphClassification:
             graphs.append((x, ei))
             labels.append(cls)
         return graphs, np.asarray(labels, np.int32)
+
+
+def csbm_graph(rng, n: int, num_communities: int, p_in: float, p_out: float,
+               feature_dim: int, mu: float = 1.0):
+    """One contextual-SBM graph: ``(x [n, feature_dim] f32, edge_index
+    [2, E], communities [n] int32)``; edges within a community with
+    probability ``p_in``, across with ``p_out`` (undirected, no loops; a
+    single ``0 → 0`` edge when there are none), features the community's
+    Gaussian mean times ``mu`` plus unit noise, all drawn from ``rng``."""
+    comm = rng.integers(0, num_communities, size=n)
+    probs = np.where(comm[:, None] == comm[None, :], p_in, p_out)
+    upper = np.triu(rng.random((n, n)) < probs, k=1)
+    s, r = np.nonzero(upper | upper.T)
+    ei = np.stack([s, r]) if s.size else np.array([[0], [0]])
+    means = rng.normal(size=(num_communities, feature_dim))
+    x = (mu * means[comm]
+         + rng.normal(size=(n, feature_dim))).astype(np.float32)
+    return x, ei, comm.astype(np.int32)

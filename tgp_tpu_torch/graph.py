@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
+from tgp_tpu_torch.ops.segment import node_cells, segment_sum_ordered
 
 __all__ = ["GraphBatch", "DenseGraphBatch", "from_graphs", "to_dense",
            "from_dense", "ceil_to"]
@@ -303,26 +304,40 @@ def from_graphs(
 
 def to_dense(batch: GraphBatch, max_nodes: Optional[int] = None
              ) -> DenseGraphBatch:
-    """Sparse packed batch → dense padded batch (pure scatter)."""
+    """Sparse packed batch → dense padded batch, the same bits every run.
+    Each valid node owns its cell ``(graph, position)``, so the features
+    and the mask are plain indexed writes (masked nodes write to a spare
+    cell past the end).  Duplicate edges are summed in a fixed order: the
+    edges sorted stably by their flat cell, each run of one cell summed by
+    :func:`~tgp_tpu_torch.ops.segment.segment_sum_ordered` (K4 on the
+    card), and every position writes its run's sum to the cell."""
     Nmax = max_nodes if max_nodes is not None else batch.max_nodes
     B, F = batch.num_graphs, batch.num_features
     dev = batch.device
     nm = batch.node_mask
-    g, p = batch.node_graph.long(), batch.node_pos.long()
+    spare = B * Nmax
+    cell = torch.where(nm, node_cells(batch.node_graph, batch.node_pos, Nmax),
+                       spare)
     x_safe = torch.where(nm[:, None], batch.x, 0.0)
-    x_dense = torch.zeros(B, Nmax, F, dtype=batch.x.dtype, device=dev)
-    x_dense.index_put_((g, p), x_safe, accumulate=True)
-    hits = torch.zeros(B, Nmax, dtype=torch.int32, device=dev)
-    hits.index_put_((g, p), nm.to(torch.int32), accumulate=True)
+    x_dense = batch.x.new_zeros(spare + 1, F).index_put((cell,), x_safe)
+    hits = torch.zeros(spare + 1, dtype=torch.bool, device=dev).index_put_(
+        (cell,), torch.ones((), dtype=torch.bool, device=dev))
 
     s, r = batch.senders.long(), batch.receivers.long()
-    eg = batch.node_graph[s].long()
-    w = torch.where(batch.edge_mask, batch.edge_weight, 0.0)
-    adj = torch.zeros(B, Nmax, Nmax, dtype=batch.edge_weight.dtype,
-                      device=dev)
-    adj.index_put_((eg, batch.node_pos[s].long(), batch.node_pos[r].long()),
-                   w, accumulate=True)
-    return DenseGraphBatch(x=x_dense, adj=adj, mask=hits > 0)
+    pos = batch.node_pos.long()
+    n_cells = B * Nmax * Nmax
+    slot = (batch.node_graph[s].long() * Nmax + pos[s]) * Nmax + pos[r]
+    key, order = torch.sort(torch.where(batch.edge_mask, slot, n_cells),
+                            stable=True)
+    is_head = torch.ones_like(key, dtype=torch.bool)
+    is_head[1:] = key[1:] != key[:-1]
+    run_id = torch.cumsum(is_head, 0) - 1
+    w = torch.where(batch.edge_mask, batch.edge_weight, 0.0)[order]
+    run_sum = segment_sum_ordered(w, run_id, w.shape[0], ids_sorted=True)
+    adj = w.new_zeros(n_cells + 1).index_put_((key,), run_sum[run_id])
+    return DenseGraphBatch(x=x_dense[:spare].view(B, Nmax, F),
+                           adj=adj[:n_cells].view(B, Nmax, Nmax),
+                           mask=hits[:spare].view(B, Nmax))
 
 
 def from_dense(dense: DenseGraphBatch, *, keep_self_loops: bool = True

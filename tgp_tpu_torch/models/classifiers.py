@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import DenseGraphBatch
@@ -18,7 +19,17 @@ from tgp_tpu_torch.reduce.global_reduce import global_reduce
 from tgp_tpu_torch.src import PoolingOutput
 from tgp_tpu_torch.utils.linear import lecun_normal_linear
 
-__all__ = ["PoolingClassifier"]
+__all__ = ["PoolingClassifier", "conv_step"]
+
+
+def conv_step(conv: nn.Module, batch, x: torch.Tensor,
+              remat: bool) -> torch.Tensor:
+    """``relu(conv(batch, x))``; with ``remat`` (and a gradient being
+    taken) its activations are recomputed in the backward pass
+    (``torch.utils.checkpoint``) instead of kept."""
+    if remat and torch.is_grad_enabled():
+        return F.relu(checkpoint(conv, batch, x, use_reentrant=False))
+    return F.relu(conv(batch, x))
 
 
 class PoolingClassifier(nn.Module):
@@ -37,7 +48,8 @@ class PoolingClassifier(nn.Module):
     skip normalization; ``fast_masks`` skips the per-layer padding masks;
     ``use_kernel=True`` runs the adjacency products in the K3 kernel
     (``None`` means False there, as in JAX).  These flags do not change the
-    sparse path.
+    sparse path.  ``remat`` recomputes the GCN layers' activations in the
+    backward pass (:func:`conv_step`); the parameters are the same.
     """
 
     def __init__(self, pooler: nn.Module, num_classes: int, hidden: int = 64,
@@ -45,7 +57,8 @@ class PoolingClassifier(nn.Module):
                  readout: str = "sum", use_kernel: Optional[bool] = None,
                  compute_dtype: Optional[torch.dtype] = None,
                  in_channels: Optional[int] = None,
-                 pre_normalized: bool = False, fast_masks: bool = False, *,
+                 pre_normalized: bool = False, fast_masks: bool = False,
+                 remat: bool = False, *,
                  device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -53,6 +66,7 @@ class PoolingClassifier(nn.Module):
         in_channels = hidden if in_channels is None else in_channels
         self.readout = readout
         self.compute_dtype = compute_dtype
+        self.remat = remat
         conv_kw = dict(use_kernel=use_kernel, dtype=compute_dtype,
                        mask_output=not fast_masks, device=device,
                        generator=generator)
@@ -78,12 +92,12 @@ class PoolingClassifier(nn.Module):
                 and self.compute_dtype is not None):
             x = x.to(self.compute_dtype)
         for conv in self.pre_convs:
-            x = F.relu(conv(batch, x))
+            x = conv_step(conv, batch, x, self.remat)
         out: PoolingOutput = self.pooler(batch.with_features(x))
         pooled = out.graph if out.graph is not None else out.dense
         h = pooled.x
         for conv in self.post_convs:
-            h = F.relu(conv(pooled, h))
+            h = conv_step(conv, pooled, h, self.remat)
         where = (dict(mask=pooled.mask) if out.graph is None else dict(
             node_graph=pooled.node_graph, num_graphs=pooled.num_graphs,
             node_mask=pooled.node_mask))

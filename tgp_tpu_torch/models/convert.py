@@ -1,6 +1,6 @@
 """Carry flax weights of ``tgp_tpu``'s ``PoolingClassifier`` (with the
-top-k, SAG, ASAP, PAN, edge-contraction or k-MIS pooler, or one without
-parameters), ``DenseTopkClassifier`` and the
+top-k, SAG, ASAP, PAN, edge-contraction, k-MIS or a dense soft-cluster
+pooler, or one without parameters), ``DenseTopkClassifier`` and the
 ``PANNet`` of ``examples/classification_pan.py`` over to the port's
 modules, so both packages compute the same function.  A flax gradient
 tree has the same paths and maps the same way, so gradients compare leaf
@@ -29,6 +29,11 @@ _RULES = (
     (r"(pre|post)_conv_(\d+)/Dense_0/kernel", r"\1_convs.\2.lin.weight", True),
     (r"(pre|post)_conv_(\d+)/bias", r"\1_convs.\2.bias", False),
     (r"pooler/selector/weight", r"pooler.selector.weight", False),
+    # the dense cluster family's MLPSelect
+    (r"pooler/selector/SelectMLP_0/Dense_(\d+)/kernel",
+     r"pooler.selector.mlp.layers.\1.weight", True),
+    (r"pooler/selector/SelectMLP_0/Dense_(\d+)/bias",
+     r"pooler.selector.mlp.layers.\1.bias", False),
     # the edge-contraction and k-MIS scorers
     (r"pooler/selector/lin/kernel", r"pooler.selector.lin.weight", True),
     (r"pooler/selector/lin/bias", r"pooler.selector.lin.bias", False),

@@ -6,7 +6,6 @@ Message passing is a batched adjacency product (the K3 kernel with
 ``use_kernel=True``), selection a per-graph top-k, pooling one-hot
 products.  Densify and normalize the static adjacency once per batch,
 outside the train step (:func:`~tgp_tpu_torch.mp.gcn.gcn_norm_dense`).
-``remat`` (activation rematerialisation) is not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import DenseGraphBatch
+from tgp_tpu_torch.models.classifiers import conv_step
 from tgp_tpu_torch.mp.gcn import GCNConv
 from tgp_tpu_torch.poolers.topk import (dense_topk_apply, dense_topk_pool,
                                         gather_rows)
@@ -40,7 +40,8 @@ class DenseTopkClassifier(nn.Module):
     the GCN layers' matmul dtype (weights stay f32; the input features are
     cast to it).  ``fast_masks``: skip the per-layer padding masks (padding
     scores are masked at selection and the readout is masked).
-    ``use_kernel``: the adjacency products run the K3 kernel.  The
+    ``use_kernel``: the adjacency products run the K3 kernel.  ``remat``:
+    the GCN layers' activations are recomputed in the backward pass.  The
     selector's projection ``p`` is drawn uniform(±1/√hidden) from
     ``generator``.  Parameter names map onto the flax tree
     (:func:`~tgp_tpu_torch.models.convert.params_from_flax`)."""
@@ -52,7 +53,7 @@ class DenseTopkClassifier(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None,
                  fast_masks: bool = True, use_kernel: bool = False,
                  pool_impl: str = "auto", in_channels: Optional[int] = None,
-                 *, device: DeviceLike = "cuda",
+                 remat: bool = False, *, device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
@@ -61,6 +62,7 @@ class DenseTopkClassifier(nn.Module):
         self.readout = readout
         self.compute_dtype = compute_dtype
         self.pool_impl = pool_impl
+        self.remat = remat
         conv_kw = dict(mask_output=not fast_masks, use_kernel=use_kernel,
                        dtype=compute_dtype, device=device, generator=generator)
         self.pre_convs = nn.ModuleList(
@@ -88,7 +90,7 @@ class DenseTopkClassifier(nn.Module):
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         for conv in self.pre_convs:
-            x = F.relu(conv(dense, x))
+            x = conv_step(conv, dense, x, self.remat)
         dense = DenseGraphBatch(x=x, adj=dense.adj, mask=dense.mask)
         p = self.p
         score = torch.tanh((x.to(p.dtype) @ p)
@@ -98,7 +100,7 @@ class DenseTopkClassifier(nn.Module):
                                  impl=self.pool_impl)
         h = pooled.x
         for conv in self.post_convs:
-            h = F.relu(conv(pooled, h))
+            h = conv_step(conv, pooled, h, self.remat)
         z = global_reduce(h.to(torch.float32), mask=pooled.mask,
                           op=self.readout)
         z = F.relu(self.dense_0(z))

@@ -14,7 +14,9 @@ the JAX layer:
   collator's sender-sorted transpose layout; on a masked pooled graph the
   degree is one more kernel pass at width 1.
 * **sorted, no CSR**: normalized messages summed by the sorted
-  segment-sum kernel.
+  segment-sum kernel (K2), the degree too: both in a fixed order.  A
+  clustering pooler's merged pooled graph takes it (its edges ascend by
+  receiver) in the kernel regime.
 * **generic**: :func:`gcn_norm` + gather/scatter SpMM.
 
 Self-loops follow ``add_remaining_self_loops`` in every branch: an
@@ -255,7 +257,9 @@ class GCNConv(nn.Module):
             unit = _unit_loops(batch).to(deg.dtype)
             deg = deg + unit
         dinv = _dinv(deg)
-        msgs = h[s] * (w * dinv[s] * dinv[r])[:, None]
+        # index_select: its gradient is one index_add_ (h[s]'s is a sort
+        # and a serial pass over each run of repeated senders)
+        msgs = h.index_select(0, s) * (w * dinv[s] * dinv[r])[:, None]
         out = segment_sum_sorted(msgs.contiguous(), batch.receivers, N,
                                  row_ptr)
         if self.add_self_loops:

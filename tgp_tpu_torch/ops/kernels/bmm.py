@@ -26,8 +26,9 @@ failure): ``"tma"`` (TMA loads into a swizzled shared-memory ring,
 rows a multiple of 16 bytes (bf16 inner extent % 8, f32 % 4) and the
 output width ``f % 4 == 0``; ``"generic"`` (WMMA on register-staged tiles,
 any shape) otherwise.  The dense step's products all take ``"tma"``.
-Launches (the backward's included) are counted in ``bmm.launches`` and,
-by route, in ``bmm.launches_by_route``.
+A batch above ``MAX_BATCH`` (the grid's z limit) is split into launches
+of at most that many products.  Launches (the backward's included) are
+counted in ``bmm.launches`` and, by route, in ``bmm.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ import torch
 __all__ = ["bmm", "bmm_plain", "route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel puts the batch on the grid's z dimension
+#: the kernel puts the batch on the grid's z dimension: a larger batch is
+#: split into launches of at most this many products
 MAX_BATCH = 65535
 #: the C interface's code for each route
 _ROUTE_CODE = {"tma": 1, "generic": 0}
@@ -122,24 +124,27 @@ def _launch(a: torch.Tensor, b: torch.Tensor, trans_a: bool,
         raise ValueError(f"bmm shapes do not agree: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}, trans_a={trans_a}, "
                          f"trans_b={trans_b}")
-    if batch > MAX_BATCH:
-        raise ValueError(f"batch {batch} exceeds the kernel's {MAX_BATCH}")
     if batch == 0 or n == 0 or f == 0 or m == 0:
         return torch.zeros(batch, n, f, dtype=torch.float32, device=a.device)
     out = torch.empty(batch, n, f, dtype=torch.float32, device=a.device)
-    chosen = route(a, b, trans_a, trans_b)
     lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.tgp_bmm(a.data_ptr(), b.data_ptr(), out.data_ptr(), batch,
-                          n, m, f, _DTYPE_CODE[a.dtype], _DTYPE_CODE[b.dtype],
-                          int(trans_a), int(trans_b), _ROUTE_CODE[chosen],
-                          stream)
-    if err != 0:
-        raise RuntimeError(f"bmm kernel launch failed ({chosen} route): "
-                           + lib.tgp_bmm_error_string(err).decode())
-    bmm.launches += 1
-    bmm.launches_by_route[chosen] += 1
+    # the batch on the grid's z dimension: launches of <= MAX_BATCH, each
+    # on the route of its own slice (their bases differ)
+    for lo in range(0, batch, MAX_BATCH):
+        a_i, b_i = a[lo:lo + MAX_BATCH], b[lo:lo + MAX_BATCH]
+        chosen = route(a_i, b_i, trans_a, trans_b)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            err = lib.tgp_bmm(a_i.data_ptr(), b_i.data_ptr(),
+                              out[lo:lo + MAX_BATCH].data_ptr(),
+                              a_i.shape[0], n, m, f, _DTYPE_CODE[a.dtype],
+                              _DTYPE_CODE[b.dtype], int(trans_a),
+                              int(trans_b), _ROUTE_CODE[chosen], stream)
+        if err != 0:
+            raise RuntimeError(f"bmm kernel launch failed ({chosen} route): "
+                               + lib.tgp_bmm_error_string(err).decode())
+        bmm.launches += 1
+        bmm.launches_by_route[chosen] += 1
     return out
 
 

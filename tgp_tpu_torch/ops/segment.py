@@ -3,6 +3,10 @@
 Same contracts as the JAX functions: a fixed ``num_segments``, optional
 element masks, ids outside ``[0, num_segments)`` dropped, and the same
 fills for empty segments.  None of them syncs with the device.
+
+:func:`segment_sum` adds by ``index_add_`` (float atomics on the card, so
+the bits of a sum may differ run to run); :func:`segment_sum_ordered` is
+its function with every segment summed in a fixed order, by K4.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 
 __all__ = [
     "segment_sum",
+    "segment_sum_ordered",
     "segment_mean",
     "segment_max",
     "segment_min",
@@ -46,6 +51,44 @@ def segment_sum(data: Tensor, segment_ids: Tensor, num_segments: int,
     out = torch.zeros((num_segments,) + data.shape[1:], dtype=data.dtype,
                       device=data.device)
     return out.index_add_(0, ids, data)
+
+
+def segment_sum_ordered(data: Tensor, segment_ids: Tensor,
+                        num_segments: int, mask=None, *,
+                        ids_sorted: bool = False) -> Tensor:
+    """:func:`segment_sum` with each segment's elements added in a fixed
+    order (the same bits every run): a stable sort of the (clipped) ids
+    gives the segments' runs, per-segment offsets come from
+    ``searchsorted`` on the device (no host sync), and K4's
+    ``gather_segment_sum`` sums each run reading the rows through the
+    sort order, skipping masked and out-of-range ones (a CUDA kernel on
+    the card, its plain version on the CPU).  ``ids_sorted`` says the ids
+    already ascend, so no sort is made.  Its gradient is a gather.  K4
+    takes f32 and bf16 data; other dtypes (integers add exactly in any
+    order) and ``num_segments = 0`` keep :func:`segment_sum`."""
+    if (data.dtype not in (torch.float32, torch.bfloat16)
+            or num_segments == 0):
+        return segment_sum(data, segment_ids, num_segments, mask=mask)
+    from tgp_tpu_torch.ops.kernels.segment_spmm import gather_segment_sum
+
+    ids = segment_ids.to(torch.int64)
+    keep = (ids >= 0) & (ids < num_segments)
+    if mask is not None:
+        keep = keep & mask
+    cids = ids.clamp(0, num_segments - 1).to(torch.int32)
+    if ids_sorted:
+        rids = cids
+        perm = torch.arange(cids.shape[0], dtype=torch.int32,
+                            device=cids.device)
+    else:
+        rids, perm = torch.sort(cids, stable=True)
+        perm = perm.to(torch.int32)
+    row_ptr = torch.searchsorted(
+        rids, torch.arange(num_segments + 1, dtype=torch.int32,
+                           device=data.device), out_int32=True)
+    out = gather_segment_sum(data.reshape(data.shape[0], -1).contiguous(),
+                             perm, keep, cids, row_ptr, num_segments)
+    return out.reshape((num_segments,) + data.shape[1:])
 
 
 def segment_count(segment_ids: Tensor, num_segments: int,
@@ -97,16 +140,21 @@ def segment_min(data: Tensor, segment_ids: Tensor, num_segments: int,
 
 
 def segment_softmax(scores: Tensor, segment_ids: Tensor, num_segments: int,
-                    mask=None) -> Tensor:
+                    mask=None, *, ordered: bool = False,
+                    ids_sorted: bool = False) -> Tensor:
     """Per-segment softmax; masked entries get 0 and do not enter the
-    normalizer."""
+    normalizer.  ``ordered`` sums the normalizer in a fixed order
+    (:func:`segment_sum_ordered`, ``ids_sorted`` passed on)."""
     m = segment_max(scores, segment_ids, num_segments, mask=mask)
     m = torch.where(torch.isfinite(m), m, 0.0)
     ids = segment_ids.long().clamp(0, num_segments - 1)
     e = torch.exp(scores - m[ids])
     if mask is not None:
         e = torch.where(_bcast(mask, e), e, 0.0)
-    denom = torch.clamp(segment_sum(e, segment_ids, num_segments), min=1e-16)
+    denom = (segment_sum_ordered(e, segment_ids, num_segments,
+                                 ids_sorted=ids_sorted) if ordered
+             else segment_sum(e, segment_ids, num_segments))
+    denom = torch.clamp(denom, min=1e-16)
     return e / denom[ids]
 
 

@@ -11,6 +11,7 @@ from tgp_tpu_torch.ops.segment import (
     segment_max,
     segment_normalize,
     segment_sum,
+    segment_sum_ordered,
 )
 
 __all__ = [
@@ -28,6 +29,9 @@ __all__ = [
     "normalize_adj_sym",
     "postprocess_adj_sparse",
     "postprocess_adj_dense",
+    "rank3_trace",
+    "rank3_diag",
+    "sddmm",
 ]
 
 Tensor = torch.Tensor
@@ -48,25 +52,32 @@ def check_and_filter_edge_weights(edge_weight):
 def coalesce(senders, receivers, edge_weight, edge_mask, num_nodes: int,
              reduce: str = "sum"):
     """Merge duplicate ``(sender, receiver)`` edges with a static edge
-    budget: sort by key (invalid edges last), reduce each run of equal
-    keys into its first slot, mask the rest."""
+    budget: sort by ``(receiver, sender)`` (invalid edges last), reduce
+    each run of equal keys into its head, mask the rest.  Each run's sum
+    (and ``mean``'s count) adds in run order by
+    :func:`~tgp_tpu_torch.ops.segment.segment_sum_ordered` (K4 on the
+    card), so a merge gives the same bits every run.
+
+    The output is JAX's merged edge set in another order: the masked
+    slots first (``0 → 0``, weight 0), then the heads ascending by
+    receiver, as ``from_graphs(sort_edges=True)`` lays edges out (JAX
+    leaves each head at its run's first slot in sender-major order)."""
     E = senders.shape[0]
     s_k = torch.where(edge_mask, senders, num_nodes).long()
     r_k = torch.where(edge_mask, receivers, num_nodes).long()
-    # lexsort (s_k, r_k): stable sort by the minor key, then the major one
-    order = torch.sort(r_k, stable=True).indices
-    order = order[torch.sort(s_k[order], stable=True).indices]
+    # lexsort: stable sort by the sender, then the receiver
+    order = torch.sort(s_k, stable=True).indices
+    order = order[torch.sort(r_k[order], stable=True).indices]
     ss, rs = s_k[order], r_k[order]
     sw = torch.where(edge_mask, edge_weight, 0.0)[order]
     is_head = torch.ones(E, dtype=torch.bool, device=senders.device)
     is_head[1:] = (ss[1:] != ss[:-1]) | (rs[1:] != rs[:-1])
     run_id = torch.cumsum(is_head.to(torch.int64), 0) - 1
-    if reduce == "sum":
-        run_val = segment_sum(sw, run_id, E)
-    elif reduce == "mean":
-        run_val = (segment_sum(sw, run_id, E)
-                   / torch.clamp(segment_sum(torch.ones_like(sw), run_id, E),
-                                 min=1.0))
+    if reduce in ("sum", "mean"):
+        run_val = segment_sum_ordered(sw, run_id, E, ids_sorted=True)
+        if reduce == "mean":
+            run_val = run_val / torch.clamp(segment_sum_ordered(
+                torch.ones_like(sw), run_id, E, ids_sorted=True), min=1.0)
     elif reduce == "max":
         run_val = segment_max(sw, run_id, E)
     else:
@@ -75,7 +86,13 @@ def coalesce(senders, receivers, edge_weight, edge_mask, num_nodes: int,
     w_out = torch.where(valid, run_val[run_id], 0.0)
     s_out = torch.where(valid, senders[order], 0)
     r_out = torch.where(valid, receivers[order], 0)
-    return s_out, r_out, w_out, valid
+    # masked slots first, then the heads in key order: a permutation from
+    # two running counts (no sort, no host sync)
+    n_masked = E - valid.sum()
+    dest = torch.where(valid, n_masked + torch.cumsum(valid, 0) - 1,
+                       torch.cumsum(~valid, 0) - 1)
+    return tuple(torch.empty_like(t).index_put_((dest,), t)
+                 for t in (s_out, r_out, w_out, valid))
 
 
 def weighted_degree(index, weight, num_nodes: int, mask=None):
@@ -270,3 +287,21 @@ def postprocess_adj_dense(adj, mask=None, *, remove_self_loops_flag=True,
         m = mask.to(adj.dtype)
         adj = adj * m[:, :, None] * m[:, None, :]
     return adj
+
+
+def rank3_trace(x: Tensor) -> Tensor:
+    """Batched trace of ``[B, N, N]`` → ``[B]``."""
+    return torch.diagonal(x, dim1=-2, dim2=-1).sum(-1)
+
+
+def rank3_diag(x: Tensor) -> Tensor:
+    """``[B, N]`` → batched diagonal matrices ``[B, N, N]``."""
+    return torch.diag_embed(x)
+
+
+def sddmm(senders, receivers, a: Tensor, b: Tensor) -> Tensor:
+    """Sampled dense-dense product: per edge ``⟨a[s_e], b[r_e]⟩`` (the
+    edge-wise ``⟨S_i, S_j⟩`` of the sparse loss twins; a plain gather,
+    not the banded K6 kernel)."""
+    return (a.index_select(0, senders.long())
+            * b.index_select(0, receivers.long())).sum(-1)

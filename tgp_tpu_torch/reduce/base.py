@@ -1,6 +1,7 @@
 """Reduce ``X' = SᵀX`` (port of ``tgp_tpu/reduce/base.py``): sparse
-assignments by a weighted segment sum, unbatched dense ``[N, K]``
-assignments by one batched product per graph.
+assignments by a weighted segment sum, batched dense ``[B, N, K]``
+assignments by one batched product, unbatched dense ``[N, K]`` assignments
+by one batched product per graph.
 
 The unbatched path computes JAX's segment sum of per-node ``K×F`` outer
 products as ``S_gᵀ X_g``: the rows of ``S`` and ``X`` are scattered into
@@ -14,19 +15,30 @@ from typing import Optional
 
 import torch
 
-from tgp_tpu_torch.ops.segment import dense_rows, segment_sum
+from tgp_tpu_torch.ops.segment import (dense_rows, segment_sum,
+                                       segment_sum_ordered)
 from tgp_tpu_torch.select.base import SelectOutput
 
-__all__ = ["reduce_sparse", "reduce_dense_unbatched", "base_reduce"]
+__all__ = ["reduce_sparse", "reduce_dense_batched", "reduce_dense_unbatched",
+           "base_reduce"]
 
 Tensor = torch.Tensor
 
 
 def reduce_sparse(x: Tensor, so: SelectOutput) -> Tensor:
-    """``x_pool[c] = Σ_{i: cluster(i)=c} w_i · x_i`` (``[C, F]``)."""
+    """``x_pool[c] = Σ_{i: cluster(i)=c} w_i · x_i`` (``[C, F]``).  A total
+    assignment's clusters may hold many nodes: their sums add in a fixed
+    order (:func:`~tgp_tpu_torch.ops.segment.segment_sum_ordered`); a
+    partial selection's supernodes hold one node each."""
     src = x * so.weight[:, None]
-    return segment_sum(src, so.cluster_index, so.num_clusters,
-                       mask=so.node_sel_mask)
+    total = segment_sum if so.partial else segment_sum_ordered
+    return total(src, so.cluster_index, so.num_clusters,
+                 mask=so.node_sel_mask)
+
+
+def reduce_dense_batched(x: Tensor, s: Tensor) -> Tensor:
+    """``[B, N, K]ᵀ × [B, N, F] → [B, K, F]``."""
+    return torch.matmul(s.transpose(1, 2), x)
 
 
 def reduce_dense_unbatched(x: Tensor, s: Tensor, node_graph: Tensor,
@@ -45,13 +57,12 @@ def reduce_dense_unbatched(x: Tensor, s: Tensor, node_graph: Tensor,
 
 def base_reduce(x: Tensor, so: SelectOutput, *,
                 return_batched: bool = True) -> Tensor:
-    """Dispatching reduce: sparse or unbatched dense assignments."""
+    """Dispatching reduce: sparse, unbatched or batched dense
+    assignments."""
     if so.is_sparse:
         return reduce_sparse(x, so)
     if so.assignment is None:
-        raise NotImplementedError(
-            "the batched dense reduce is not ported: the dense top-k path "
-            "pools through dense_topk_apply")
+        return reduce_dense_batched(x, so.s)
     return reduce_dense_unbatched(
         x, so.assignment, so.node_graph, so.num_graphs, so.node_mask,
         return_batched, node_pos=so.node_pos, max_nodes=so.max_nodes)

@@ -2,11 +2,12 @@
 sparse ``[N,F]`` + ``node_graph`` or dense ``[B,N,F]`` + mask → ``[B,F]``.
 
 The sparse ``sum`` and ``mean`` add in a fixed order, as
-``jax.ops.segment_sum`` does: a stable sort of the (clipped) graph ids
-gives the rows' graph order, and K4's ``gather_segment_sum`` sums each
-graph's run of rows from per-graph offsets, reading the rows through that
-order and skipping masked ones (a CUDA kernel on the card, its plain
-version on the CPU; no sorted, masked copy of the rows is written).  Every
+``jax.ops.segment_sum`` does, by :func:`~tgp_tpu_torch.ops.segment.
+segment_sum_ordered`: a stable sort of the (clipped) graph ids gives the
+rows' graph order, and K4's ``gather_segment_sum`` sums each graph's run
+of rows from per-graph offsets, reading the rows through that order and
+skipping masked ones (a CUDA kernel on the card, its plain version on the
+CPU; no sorted, masked copy of the rows is written).  Every
 batch type takes this one route: the
 batches of ``from_graphs`` (padding nodes in the last graph), masked pooling
 (which keeps them) and compact pooling (``cluster_graph = arange // kmax``)
@@ -20,37 +21,12 @@ from typing import Optional
 
 import torch
 
-from tgp_tpu_torch.ops.kernels.segment_spmm import gather_segment_sum
 from tgp_tpu_torch.ops.segment import (segment_count, segment_max,
-                                       segment_min, segment_sum)
+                                       segment_min, segment_sum_ordered)
 
 __all__ = ["global_reduce"]
 
 Tensor = torch.Tensor
-
-
-def _graph_sum(x: Tensor, node_graph: Tensor, num_graphs: int,
-               mask: Optional[Tensor]) -> Tensor:
-    """``segment_sum``'s function in a fixed order: rows masked or with an
-    id outside ``[0, num_graphs)`` are skipped, the rest summed by K4 in
-    the order of a stable sort by graph, over per-graph offsets (built on
-    the device by ``searchsorted``, no host sync).  K4 takes f32 and bf16
-    rows; other dtypes keep ``segment_sum``."""
-    if x.dtype not in (torch.float32, torch.bfloat16) or num_graphs == 0:
-        return segment_sum(x, node_graph, num_graphs, mask=mask)
-    ids = node_graph.to(torch.int64)
-    keep = (ids >= 0) & (ids < num_graphs)
-    if mask is not None:
-        keep = keep & mask
-    cids = ids.clamp(0, num_graphs - 1).to(torch.int32)
-    rids, perm = torch.sort(cids, stable=True)
-    row_ptr = torch.searchsorted(
-        rids, torch.arange(num_graphs + 1, dtype=torch.int32,
-                           device=x.device), out_int32=True)
-    out = gather_segment_sum(x.reshape(x.shape[0], -1).contiguous(),
-                             perm.to(torch.int32), keep, cids, row_ptr,
-                             num_graphs)
-    return out.reshape((num_graphs,) + x.shape[1:])
 
 
 def global_reduce(x: Tensor, *, node_graph: Optional[Tensor] = None,
@@ -78,9 +54,9 @@ def global_reduce(x: Tensor, *, node_graph: Optional[Tensor] = None,
     if node_mask is None:
         node_mask = mask
     if op == "sum":
-        return _graph_sum(x, node_graph, num_graphs, node_mask)
+        return segment_sum_ordered(x, node_graph, num_graphs, node_mask)
     if op == "mean":
-        s = _graph_sum(x, node_graph, num_graphs, node_mask)
+        s = segment_sum_ordered(x, node_graph, num_graphs, node_mask)
         c = segment_count(node_graph, num_graphs, mask=node_mask).to(s.dtype)
         c = torch.clamp(c, min=1e-12)
         return s / c.reshape(c.shape + (1,) * (s.dim() - 1))

@@ -7,10 +7,11 @@
 * **dense (soft) assignments**, batched: ``in_mask [B,N]`` for padded
   rows, ``s [B,N,K]`` and an optional ``cluster_mask [B,K]`` that
   overrides the supernode validity derived from ``s`` (the dense top-k
-  layout stores signed score gates in ``s``).  The only dense producer is
-  the top-k selection, whose ``extras`` (``idx``, ``gate``) hold ``s``
-  compactly: ``s`` is built from them when read, since the pooling path
-  reads ``extras`` and never needs it.
+  layout stores signed score gates in ``s``).  A soft assignment (the
+  dense cluster family's ``MLPSelect``) is held in ``batched_s``; the
+  top-k selection's ``extras`` (``idx``, ``gate``) hold its ``s``
+  compactly, built from them when read (its pooling path reads
+  ``extras`` and never needs it).
 * **unbatched dense assignments** (LaPool): ``assignment [N, K]`` over
   a multi-graph sparse batch, each node's row over its own graph's ``K``
   supernode slots; ``s`` returns it.  It also carries the batch's
@@ -69,18 +70,24 @@ class SelectOutput:
     cluster_mask: Optional[Tensor] = None
     # --- unbatched dense soft assignment ---
     assignment: Optional[Tensor] = None  # [N,K]
+    # --- batched dense soft assignment ---
+    batched_s: Optional[Tensor] = None  # [B,N,K]
 
     @property
     def is_dense(self) -> bool:
-        return self.in_mask is not None or self.assignment is not None
+        return (self.in_mask is not None or self.assignment is not None
+                or self.batched_s is not None)
 
     @property
     def s(self) -> Optional[Tensor]:
-        """Dense ``s``: the unbatched ``[N,K]`` assignment where there is
-        one; else ``[B,N,K]`` with ``s[b, n, k] = gate[b, k] · 1[idx[b, k]
-        = n]``, from the top-k ``extras``; None in the sparse layout."""
+        """Dense ``s``: the unbatched ``[N,K]`` assignment or the batched
+        ``[B,N,K]`` soft one where there is one; else ``[B,N,K]`` with
+        ``s[b, n, k] = gate[b, k] · 1[idx[b, k] = n]``, from the top-k
+        ``extras``; None in the sparse layout."""
         if self.assignment is not None:
             return self.assignment
+        if self.batched_s is not None:
+            return self.batched_s
         if not self.is_dense:
             return None
         idx, gate = self.extras["idx"], self.extras["gate"]
@@ -99,7 +106,7 @@ class SelectOutput:
             return self.cluster_index.shape[0]
         if self.assignment is not None:
             return self.assignment.shape[0]
-        return self.in_mask.shape[1]
+        return self.s.shape[1]
 
     def out_mask(self) -> Tensor:
         """Supernode validity: ``cluster_mask`` when given; else ``[C]``

@@ -230,8 +230,10 @@ class EdgeContractionSelect(nn.Module):
                            device=e.device)
             e = torch.where(u < keep_p, e / keep_p, 0.0)
         if self.edge_score_method == "softmax":
+            # each receiver's normalizer summed in a fixed order
             e = segment_softmax(e, batch.receivers, batch.num_nodes,
-                                mask=batch.edge_mask)
+                                mask=batch.edge_mask, ordered=True,
+                                ids_sorted=batch.edges_sorted)
         elif self.edge_score_method == "tanh":
             e = torch.tanh(e)
         else:

@@ -20,7 +20,8 @@ from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import GraphBatch
-from tgp_tpu_torch.ops.segment import node_cells, segment_min, segment_sum
+from tgp_tpu_torch.ops.segment import (node_cells, segment_min, segment_sum,
+                                       segment_sum_ordered)
 from tgp_tpu_torch.ops.sparse import coalesce, use_dense_vote, weighted_degree
 from tgp_tpu_torch.select.base import SelectOutput
 from tgp_tpu_torch.select.edge_contraction import (dense_cells, rank_by,
@@ -242,8 +243,10 @@ class KMISSelect(nn.Module):
         s = batch.senders.long()
         for _ in range(self.order_k):
             src = torch.where(batch.edge_mask, k_sums.index_select(0, s), 0.0)
-            k_sums = k_sums + segment_sum(src, batch.receivers,
-                                          batch.num_nodes)
+            # each node's sum in a fixed order
+            k_sums = k_sums + segment_sum_ordered(
+                src, batch.receivers, batch.num_nodes,
+                ids_sorted=batch.edges_sorted)
         return score / torch.clamp(k_sums, min=1e-12)
 
     def forward(self, batch: GraphBatch) -> SelectOutput:
@@ -254,8 +257,12 @@ class KMISSelect(nn.Module):
             m2 = torch.cat([batch.edge_mask, batch.edge_mask])
             s2, r2, w2, m2 = coalesce(s2, r2, w2, m2, batch.num_nodes,
                                       reduce="max")
-            batch = batch.replace(senders=s2, receivers=r2, edge_weight=w2,
-                                  edge_mask=m2)
+            # the merged list ascends by receiver; no CSR layout
+            batch = batch.replace(
+                senders=s2, receivers=r2, edge_weight=w2, edge_mask=m2,
+                edges_sorted=True, row_ptr=None, senders_t=None,
+                receivers_t=None, edge_weight_t=None, row_ptr_t=None,
+                in_degree=None, has_self_loop=None)
         score = self._score(batch)
         rank = rank_by(self._heuristic(score, batch), batch.node_mask)
         impl = self.mis_impl

@@ -9,7 +9,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from tgp_tpu_torch.connect.base import ConnectConfig, sparse_connect
+from tgp_tpu_torch.connect.base import (ConnectConfig, PooledEdges,
+                                       sparse_connect)
 from tgp_tpu_torch.graph import (DenseGraphBatch, GraphBatch, from_dense,
                                  to_dense)
 from tgp_tpu_torch.lift.base import base_lift
@@ -75,22 +76,23 @@ class SRCPooling(nn.Module):
         return sparse_connect(batch.senders, batch.receivers,
                               batch.edge_weight, batch.edge_mask, so, cfg)
 
-    def pooled_graph(self, x_pool: Tensor, edges, so: SelectOutput,
-                     batch: GraphBatch) -> GraphBatch:
-        """Assemble the pooled :class:`GraphBatch` from reduce + connect."""
-        s, r, w, m = edges
+    def pooled_graph(self, x_pool: Tensor, edges: PooledEdges,
+                     so: SelectOutput, batch: GraphBatch) -> GraphBatch:
+        """Assemble the pooled :class:`GraphBatch` from reduce + connect
+        (``edges_sorted`` as the connect laid the edges out)."""
         out_mask = so.out_mask()
         return GraphBatch(
             x=torch.where(out_mask[:, None], x_pool, 0.0),
-            senders=s,
-            receivers=r,
-            edge_weight=w,
-            edge_mask=m,
+            senders=edges.senders,
+            receivers=edges.receivers,
+            edge_weight=edges.edge_weight,
+            edge_mask=edges.edge_mask,
             node_graph=so.cluster_graph,
             node_pos=so.cluster_pos,
             node_mask=out_mask,
             num_graphs=batch.num_graphs,
             max_nodes=so.max_clusters,
+            edges_sorted=edges.edges_sorted,
         )
 
 
