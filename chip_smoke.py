@@ -108,18 +108,36 @@ each of which raises on failure:
    DMoN, HOSC, JustBalance and AsymCheegerCut, batched and ``_u``, one
    forward each: every loss within 1e-4 of the CPU's, batched and ``_u``
    within 5e-4 of each other;
-12. the locality path on the union of the dense graphs (16,384 nodes):
+   BNPool joins them: ``[train_bnpool]`` and ``[train_bnpool_u]`` are
+   ``[train_mincut]`` and ``[train_mincut_u]`` with ``get_pooler("bnpool")``
+   (K = 16, CE + quality + kl + K_prior, its Beta draws and negatives from
+   the pooler's sample generator, replayed into the CPU reference), and
+   ``[dense_family]`` holds BNPool batched against ``_u`` on shared draws;
+12. MaxCut at the serving width: ``[serving_maxcut]`` is ``[serving]``
+   with ``get_pooler("maxcut")`` (K1 13 times a request: the pre-pool GCN
+   and the 12 δ-GCN rounds; K2 twice; K4 once ``"long"`` and 6 times
+   ``"wide"``), cluster ids equal to the CPU's on the card's replayed
+   top-k selection, every valid node assigned, a repeated request
+   bit-equal; ``[train_maxcut]`` is ``[train_sparse]`` with it for 5
+   steps (CE + the maxcut loss, K1 26 times a step); ``[maxcut_dense]``
+   runs its dense and sparse engines on the ASAP cell's batch, scores
+   within 1e-4 of each other and of the CPU's, the same votes;
+13. the locality path on the union of the dense graphs (16,384 nodes):
    ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
    engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
    ``sddmm_banded`` (K6) on the same plan, each held against the plain
    product of the graph in its own order.
 
-Every ``[kernels]`` row carries the card's ``nvidia-smi`` name and power
-limit; the kernels line counts K1's launches in sparse training, SAG's
-and the clustering poolers' serving and training, K2's in the clustering
-poolers' and the locality path, K4's in all of those and in ASAP's and
-PAN's steps, K3's in dense training, LaPool's and MinCut's steps; the
-``launches:`` line gives each path's K1, K2, K3 and K4.  K3's
+Every training phase first runs step one twice from the same weights,
+batch and generator states and fails unless the loss and every gradient
+leaf are bit-equal: every float sum of a step (the segment sums and each
+gather's gradient) adds in a fixed order on K4.  Every ``[kernels]`` row
+carries the card's ``nvidia-smi`` name and power limit (K1 also at F = 32
+f32, MaxCut's widest round; K4 also at three shapes of a step's gather
+gradients: MaxCut's post-pool and score gathers, ASAP's); the kernels line counts each kernel's
+launches summed over every served and trained path (and K2's in the
+locality path); the ``launches:`` line gives each path's K1, K2, K3 and
+K4.  K3's
 ``[kernels]`` rows add MinCut's post-pool product ``[64, 16, 16] ·
 [64, 16, 128]`` and one batch of 70,000 products, split into two
 launches.  The next-to-last line of output is a JSON object ``{"kernels":
@@ -189,12 +207,25 @@ SAG_STEPS = 5
 # "long" route: a repeated request gives the same bits
 CLUSTERS = ("graclus", "kmis", "ec")
 CLUSTER_STEPS = 5
-K1_PER_REQUEST = {"topk": 3, "sag": 4, "graclus": 1, "kmis": 1, "ec": 1}
+# MaxCut on the same graph: the pre-pool GCN and its 12 δ-GCN rounds
+# (widths 32 … 8, f32) run K1, 13 launches forward and 13 backward; the
+# degree of P, the maxcut loss's sums, the reduce's cluster sums and the
+# merge add on K4's "wide" route, the post-pool GCN on K2
+MAXCUT_MP_WIDTH = 32
+K1_PER_REQUEST = {"topk": 3, "sag": 4, "graclus": 1, "kmis": 1, "ec": 1,
+                  "maxcut": 13}
 K1_PER_TRAIN_STEP = {"topk": K1_PER_STEP, "sag": K1_PER_STEP + 2,
-                     "kmis": 2, "ec": 2}
+                     "kmis": 2, "ec": 2, "maxcut": 26}
 K4_WIDE_PER_FORWARD = {"topk": 0, "sag": 0, "graclus": 2, "kmis": 3,
-                       "ec": 3}
-K2_PER_FORWARD = {"topk": 0, "sag": 0, "graclus": 2, "kmis": 2, "ec": 2}
+                       "ec": 3, "maxcut": 6}
+K2_PER_FORWARD = {"topk": 0, "sag": 0, "graclus": 2, "kmis": 2, "ec": 2,
+                  "maxcut": 2}
+# a training step's K4 launches past the readout: the forward's and, since
+# every gather's gradient adds in a fixed order, one a gather of a
+# repeated index backward (EC's two score gathers, the post-pool GCN's
+# message gather, the maxcut loss's gather of the scores)
+K4_WIDE_PER_TRAIN_STEP = {"topk": 0, "sag": 0, "kmis": 4, "ec": 6,
+                          "maxcut": 8}
 # edge contraction's scores are a softmax over each receiver's edges,
 # which a shift of every score leaves as it is: the scorer's bias takes a
 # zero gradient, held under its weight's gradient scale on both sides
@@ -207,10 +238,14 @@ K3_PER_LAP_STEP = 3
 # ASAP, PAN and LaPool through the example twins' models, on the dense
 # graphs collated sparse (below PALLAS_MIN_EDGES: no K1); launches a step
 SMALL_STEPS = 5
-SMALL_LAUNCHES = {"asap": {"sorted_segment_sum": 1},
-                  # PANConv's to_dense sums duplicate edges on K4 too
-                  "pan": {"sorted_segment_sum": 2},
-                  "lap": {"bmm": K3_PER_LAP_STEP}}
+# (the readout's K4 once; every other sum of a float, forward, and the
+# gradient of every gather, backward, adds in a fixed order on K4 too:
+# the generic GCN branch's degree, aggregation and message gather,
+# ASAP's attention and cluster sums, PAN's MET products and to_dense,
+# LaPool's sparse pre-pool GCN)
+SMALL_LAUNCHES = {"asap": {"sorted_segment_sum": 15},
+                  "pan": {"sorted_segment_sum": 20},
+                  "lap": {"bmm": K3_PER_LAP_STEP, "sorted_segment_sum": 8}}
 # step one of training, GPU against the CPU's plain versions (bf16):
 LOSS_REL_TOL, GRAD_REL_TOL = 2e-2, 5e-2  # loss; each leaf's max |value|
 # the dense soft-cluster family on the dense cell's graphs: MinCut trained
@@ -222,7 +257,23 @@ LOSS_REL_TOL, GRAD_REL_TOL = 2e-2, 5e-2  # loss; each leaf's max |value|
 # launches nothing)
 DENSE_FAMILY = ("mincut", "diff", "dmon", "hosc", "jb", "acc")
 MINCUT_K, MINCUT_STEPS = 16, 5
-K3_PER_MINCUT_STEP = {"mincut": 5, "mincut_u": 3}
+# BNPool (K = 16, f32, CE + quality + kl + K_prior) the same, its Beta
+# draws and "_u"'s negatives from the pooler's sample generator; the "_u"
+# modes' sparse pre-pool GCN, losses and gathers add on K4
+SOFT_LAUNCHES = {"mincut": {"bmm": 5},
+                 "mincut_u": {"bmm": 3, "sorted_segment_sum": 10},
+                 "bnpool": {"bmm": 5},
+                 "bnpool_u": {"bmm": 3, "sorted_segment_sum": 11}}
+SOFT_LOSSES = {"mincut": {"cut_loss", "ortho_loss"},
+               "bnpool": {"quality", "kl", "K_prior"}}
+# [maxcut_dense]: the two engines' scores (and each against the CPU)
+# within this of the score scale after 12 rounds; a forward and backward's
+# launches on each engine
+MAXCUT_ENGINE_TOL = 1e-4
+MAXCUT_DENSE_LAUNCHES = {"dense": {"sorted_segment_sum": 8},
+                         "sparse": {"spmm_csr": 24, "sorted_segment_sum": 7}}
+# [maxcut_dense]: warm forward-and-backward runs timed on each engine
+MAXCUT_DENSE_TIMED = 5
 # [dense_family]: each loss on the card within this of the CPU's
 # (relative), and batched against "_u" within the contract of
 # tests/poolers/test_dense_batched_vs_unbatched.py (rtol = atol)
@@ -474,6 +525,8 @@ def phase_kernels(batch):
     for dtype, F, weights, x in (
             (torch.bfloat16, FEATURES, w, None),
             (torch.float32, FEATURES, w, None),
+            # MaxCut's widest δ-GCN round (f32, 32 wide)
+            (torch.float32, MAXCUT_MP_WIDTH, w, None),
             # the degree pass of the post-pool GCN: x = node mask, |w|
             (torch.float32, 1, w.abs(),
              batch.node_mask.to(torch.float32)[:, None].contiguous())):
@@ -730,6 +783,80 @@ def phase_kernels_readout(batch, d_graphs):
     return rows
 
 
+def phase_kernels_gather_grad(batch, d_graphs, d_labels):
+    """K4 as a training step's gather gradients run it (``gather_rows``'
+    backward: the cotangent rows summed into their ids' segments, read
+    through a stable sort of the ids), at three shapes of the main path:
+    MaxCut's post-pool GCN (the cotangent of its message gather, 128 bf16
+    wide, over the senders of the served pooled graph of the first
+    request, into its nodes), MaxCut's score gathers (1 f32 wide, over
+    the request's senders, into its 65,536 nodes; the δ-GCN degree and
+    the loss's sums take the same shape) and the ASAP cell's gathers (128
+    f32 wide, over its edges and self-loops, into its 16,384 nodes).  Each
+    is held to the plain version at REL_TOL and run twice for the same
+    bits.  The bound counts each cotangent row read once, the order, the
+    keep flags, the offsets and the output.  Library: the ``index_add_``
+    the gradient once was; beside it ``torch.segment_reduce`` on the rows
+    in sort order (``segment_reduce_ms``) and the stable sort with its
+    offsets that precede the kernel (``sort_ms``)."""
+    from torch.nn import functional as F_
+
+    from tgp_tpu_torch.data import GraphLoader
+    from tgp_tpu_torch.mp.gcn import gcn_norm
+    from tgp_tpu_torch.ops.kernels import segment_spmm as K
+    from tgp_tpu_torch.ops.segment import _sorted_layout
+
+    model = build_model("cuda", alias="maxcut").eval()
+    with torch.inference_mode():
+        x = batch.x
+        for conv in model.pre_convs:
+            x = F_.relu(conv(batch, x))
+        pooled = model.pooler(batch.with_features(x)).graph
+    asap, _ = next(iter(GraphLoader(d_graphs, d_labels,
+                                    batch_size=len(d_graphs), device="cuda")))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = (("maxcut post-pool", pooled.senders, pooled.num_nodes, HIDDEN,
+              torch.bfloat16),
+             ("maxcut scores", batch.senders, batch.num_nodes, 1,
+              torch.float32),
+             ("asap", gcn_norm(asap)[0], asap.num_nodes, HIDDEN,
+              torch.float32))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for what, ids, B, F, dtype in cases:
+        ids = ids.long()
+        E = ids.shape[0]
+        g = torch.randn(E, F, generator=gen, device="cuda").to(dtype)
+        cids = ids.to(torch.int32)
+        keep = torch.ones(E, dtype=torch.bool, device="cuda")
+        perm, rp = _sorted_layout(ids, B, False)
+        in_order = g[perm.long()].contiguous()
+        isz = g.element_size()
+        name = (f"K4 gather gradient {what} F={F} "
+                f"{str(dtype).split('.')[-1]} segments={B}")
+        rows[name] = check_mode(
+            name, lambda: K.gather_segment_sum(g, perm, keep, cids, rp, B),
+            lambda: K.gather_segment_sum_plain(g, perm, keep, rp, B),
+            lambda: torch.zeros(B, F, dtype=dtype, device="cuda").index_add_(
+                0, ids, g),
+            rel_tol=REL_TOL, slack=BF16_ULP if dtype == torch.bfloat16
+            else 0.0,
+            bound_bytes=isz * E * F + 4 * E + E + 4 * (B + 1) + isz * B * F,
+            flops=E * F, peak=FP32_FLOPS_PER_S,
+            scale=K.gather_segment_sum_plain(g.float().abs(), perm, keep, rp,
+                                             B),
+            flush=flush, note="index_add_ (the gather's own gradient)",
+            twice=True,
+            extra={"rows": E, "route": K.segment_route(B, E, F),
+                   "sort_ms": median_ms(
+                       lambda: _sorted_layout(ids, B, False), flush),
+                   "segment_reduce_ms": median_ms(
+                       lambda: torch.segment_reduce(
+                           in_order, "sum", offsets=rp.long()), flush)})
+    del flush
+    return rows
+
+
 def phase_kernels_k3(adj):
     """K3 at the dense training slice's shapes, on its normalized bf16
     adjacency ``adj [64, 256, 256]`` (its top-left 128 × 128 blocks for
@@ -904,6 +1031,96 @@ def pinned_ranks(record=None, replay=None):
         raise AssertionError(f"{len(queue)} recorded ranks left unused")
 
 
+@contextlib.contextmanager
+def pinned_selection(record=None, replay=None):
+    """Record MaxCut's top-k selections (which nodes are kept, appended to
+    ``record`` on the CPU), or hand out ``replay``'s in their place, in
+    order, their weights the scores of this run: the CPU reference then
+    votes from the card's selection.  The scores are tanh'd through bf16
+    features, so an independent CPU top-k may break exact ties the other
+    way."""
+    from tgp_tpu_torch.select import maxcut
+
+    real = maxcut.topk_select_from_scores
+    queue = list(replay or [])
+
+    def select(score, batch, *args, **kw):
+        so = real(score, batch, *args, **kw)
+        if replay is None:
+            record.append((so.cluster_index.cpu(), so.node_sel_mask.cpu()))
+            return so
+        ci, keep = (t.to(score.device) for t in queue.pop(0))
+        return so.replace(cluster_index=ci, node_sel_mask=keep,
+                          weight=torch.where(keep, score, 0.0))
+
+    maxcut.topk_select_from_scores = select
+    try:
+        yield
+    finally:
+        maxcut.topk_select_from_scores = real
+    if replay is not None and queue:
+        raise AssertionError(f"{len(queue)} recorded selections left unused")
+
+
+@contextlib.contextmanager
+def pinned_draws(record=None, replay=None):
+    """Record BNPool's Gamma draws and sampled negatives (appended to
+    ``record`` on the CPU, in order), or hand out ``replay``'s in their
+    place: the CPU reference then computes the card's function."""
+    from tgp_tpu_torch.poolers import bnpool
+    from tgp_tpu_torch.select import dp
+
+    real_gamma, real_neg = dp.draw_gamma, bnpool.negative_edge_sampling
+    queue = list(replay or [])
+
+    def moved(out, device):
+        return (tuple(t.to(device) for t in out) if isinstance(out, tuple)
+                else out.to(device))
+
+    def pinned(real):
+        def draw(on, generator, **kw):  # on: the alphas, or the batch
+            if replay is not None:
+                return moved(queue.pop(0), on.device)
+            out = real(on, generator, **kw)
+            record.append(moved(out, "cpu"))
+            return out
+        return draw
+
+    dp.draw_gamma = pinned(real_gamma)
+    bnpool.negative_edge_sampling = pinned(real_neg)
+    try:
+        yield
+    finally:
+        dp.draw_gamma, bnpool.negative_edge_sampling = real_gamma, real_neg
+    if replay is not None and queue:
+        raise AssertionError(f"{len(queue)} recorded draws left unused")
+
+
+def step_one_repeats(tag, loss_and_grads, generators=()):
+    """Step one twice from the same weights, batch and generator states
+    (restored before each run and after): the loss and every gradient leaf
+    must be bit-equal (every sum of the step adds in a fixed order).
+    ``loss_and_grads()`` returns ``(loss, {name: grad})`` (or ``(loss,
+    out, {name: grad})``) without an update."""
+    states = [g.get_state() for g in generators]
+    runs = []
+    for _ in range(2):
+        for g, st in zip(generators, states):
+            g.set_state(st)
+        got = loss_and_grads()
+        runs.append((got[0].detach().clone(), got[-1]))
+    for g, st in zip(generators, states):
+        g.set_state(st)
+    (l1, g1), (l2, g2) = runs
+    diff = sorted(k for k in g1 if not torch.equal(g1[k], g2[k]))
+    if not torch.equal(l1, l2) or diff or set(g1) != set(g2):
+        worst = {k: float((g1[k] - g2[k]).abs().max()) for k in diff}
+        raise AssertionError(f"{tag}: step one repeated from the same "
+                             f"weights differs: loss {float(l1)} vs "
+                             f"{float(l2)}, leaves {worst}")
+    return True
+
+
 def build_model(device, *, alias="topk", pool_mode="auto", use_kernel=None,
                 seed=0):
     """The served model with the ``alias`` pooler (top-k, SAG with its
@@ -938,13 +1155,15 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
     tag = "serving" if alias == "topk" else f"serving_{alias}"
     k1_per_request = K1_PER_REQUEST[alias]
     clustering = alias in CLUSTERS
+    total = clustering or alias == "maxcut"  # a total assignment
     model = build_model("cuda", alias=alias).eval()
     predictor = Predictor(lambda b: model(b)[0], batch_size=1,
                           sort_edges=True, device="cuda")
-    ranks = []
-    with torch.inference_mode(), pinned_ranks(record=ranks):
+    ranks, sels = [], []
+    with torch.inference_mode(), pinned_ranks(record=ranks), \
+            pinned_selection(record=sels):
         logits, out = model(batch)  # warm-up: cuBLAS handles, allocator
-    if not clustering and out.so.extras.get("pool_mode") != "masked":
+    if not total and out.so.extras.get("pool_mode") != "masked":
         raise AssertionError("the served request did not take masked pooling")
     if alias == "sag":
         # the scorer alone: its A X is one K1 launch, at the input width
@@ -1004,12 +1223,13 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
                             use_kernel=True)
     cpu_model.load_state_dict({k: v.cpu() for k, v in
                                model.state_dict().items()})
-    with torch.inference_mode(), pinned_ranks(replay=ranks):
+    with torch.inference_mode(), pinned_ranks(replay=ranks), \
+            pinned_selection(replay=sels):
         ref, ref_out = cpu_model(batch.to("cpu"))
     ref = ref.numpy()
     tol = 2e-2 * float(np.abs(ref).max())
     diff = float(np.abs(served[0] - ref[0]).max())
-    if (not clustering and ref_out.so.extras.get("pool_mode") != "masked"
+    if (not total and ref_out.so.extras.get("pool_mode") != "masked"
             or diff > tol):
         raise AssertionError(f"GPU logits {served[0]} vs CPU {ref[0]}: "
                              f"max |diff| {diff} > {tol}")
@@ -1028,6 +1248,22 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
         max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=repeat_equal)
     if alias == "sag":
         result["scorer_launches"] = scorer
+    if alias == "maxcut":
+        # the card's selection replayed: the same votes on the CPU; after
+        # the propagation rounds and the fallback every valid node has a
+        # cluster
+        got_ci = out.so.cluster_index.cpu()
+        if not torch.equal(got_ci, ref_out.so.cluster_index):
+            raise AssertionError(
+                f"maxcut: {int((got_ci != ref_out.so.cluster_index).sum())}"
+                " cluster ids differ from the CPU's")
+        unassigned = int((batch.node_mask & ~out.so.node_sel_mask).sum())
+        if unassigned:
+            raise AssertionError(f"maxcut: {unassigned} valid nodes left "
+                                 "unassigned")
+        result.update(clusters=int(out.so.out_mask().sum()),
+                      kept=int(sels[0][1].sum()), unassigned=unassigned,
+                      cluster_ids_equal_cpu=True, selection_from="card")
     if clustering:
         # the same clusters: Graclus's ranks come from the input's weights
         # (the CPU ran its own), the others' from the card (replayed)
@@ -1090,12 +1326,14 @@ def _train_step(model, opt, batch, y, aux):
     return loss.detach()
 
 
-def _step_one_grads(model, batch, y):
+def _step_one_grads(model, batch, y, aux=False):
     """Loss and gradients (copies, on the model's device) of one step,
-    without the update."""
+    without the update (``aux``: the pooler's auxiliary losses added)."""
     model.zero_grad(set_to_none=True)
-    logits, _ = model(batch)
+    logits, out = model(batch)
     loss = torch.nn.functional.cross_entropy(logits, y)
+    if aux:
+        loss = loss + out.loss_sum()
     loss.backward()
     return loss.detach(), {k: v.grad.detach().float().clone()
                            for k, v in model.named_parameters()}
@@ -1141,6 +1379,8 @@ def phase_train_dense(card, dense, y, n_edges, profile: bool):
             model.state_dict().items()}
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
 
+    repeat = step_one_repeats("train_dense",
+                              lambda: _step_one_grads(model, dense, y))
     # the main path, counted: 10 steps, K3 four times a step, all "tma"
     reset_counts()
     step_ms, losses, per_step, per_step_tma = [], [], [], []
@@ -1190,6 +1430,7 @@ def phase_train_dense(card, dense, y, n_edges, profile: bool):
         step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
         loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
         grad_rel_tol=GRAD_REL_TOL, cpu_check_s=cpu_s,
+        step1_repeat_bit_equal=repeat,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[train_dense] {json.dumps(result)}", flush=True)
 
@@ -1228,6 +1469,10 @@ def phase_train_default(card, graphs, labels):
                          "launches_by_route": []},
               "matmul": {"step_ms": [], "launches": [],
                          "launches_by_route": []}}
+    for conv in (*model.pre_convs, *model.post_convs):
+        conv.use_kernel = True
+    result["step1_repeat_bit_equal"] = step_one_repeats(
+        "train_default", lambda: _step_one_grads(model, batch, y, aux=True))
     for route in ("kernel", "matmul", "matmul", "kernel"):
         model.load_state_dict(init)
         for conv in (*model.pre_convs, *model.post_convs):
@@ -1307,6 +1552,7 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
                                                          CLUSTER_STEPS)
     k1_per_step = K1_PER_TRAIN_STEP[alias]
     clustering = alias in CLUSTERS
+    total = clustering or alias == "maxcut"
 
     x, ei = request_graph(7)  # bench_jax_large's graph: default_rng(7)
     torch.cuda.synchronize()
@@ -1327,25 +1573,29 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
             break
     else:
         raise AssertionError("no seed in 0..15 gives label 1 a loss >= 1")
-    if not clustering and out.so.extras.get("pool_mode") != "masked":
+    if not total and out.so.extras.get("pool_mode") != "masked":
         raise AssertionError("the training graph did not take masked pooling")
     init = {k: v.detach().cpu().clone() for k, v in
             model.state_dict().items()}
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     K1 = _wrappers()["spmm_csr"]
     K4 = _wrappers()["sorted_segment_sum"]
+    aux = alias == "maxcut"  # CE + the maxcut loss
+    repeat = step_one_repeats(
+        tag, lambda: _step_one_grads(model, batch, y, aux=aux))
 
     # the main path, counted: K1 k1_per_step times a step and K4 (the
     # readout) once, on its "long" route
     reset_counts()
     step_ms, losses, per_step, k4_per_step = [], [], [], []
-    ranks = []
+    ranks, sels = [], []
     for i in range(steps):
         before, k4_before = K1.launches, K4.launches_by_route["long"]
         if i == 0:  # step one keeps its gradients for the CPU check
             def first():
-                with pinned_ranks(record=ranks):
-                    out = _step_one_grads(model, batch, y)
+                with pinned_ranks(record=ranks), \
+                        pinned_selection(record=sels):
+                    out = _step_one_grads(model, batch, y, aux=aux)
                 opt.step()
                 return out
 
@@ -1354,7 +1604,7 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
             grads0 = {k: v.cpu() for k, v in grads0.items()}
         else:
             ms, loss = _timed_step(
-                lambda: _train_step(model, opt, batch, y, aux=False))
+                lambda: _train_step(model, opt, batch, y, aux=aux))
         step_ms.append(ms)
         losses.append(float(loss))
         per_step.append(K1.launches - before)
@@ -1366,7 +1616,7 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
                              "and 1")
     want = dict.fromkeys(launches, 0)
     want.update(spmm_csr=k1_per_step * steps,
-                sorted_segment_sum=(1 + K4_WIDE_PER_FORWARD[alias]) * steps,
+                sorted_segment_sum=(1 + K4_WIDE_PER_TRAIN_STEP[alias]) * steps,
                 segment_sum_sorted=K2_PER_FORWARD[alias] * steps)
     if launches != want:
         raise AssertionError(f"{steps} steps launched {launches}, want "
@@ -1379,9 +1629,9 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
                       use_kernel=True)
     cpu.load_state_dict(init)
     t0 = time.perf_counter()
-    with pinned_ranks(replay=ranks):
+    with pinned_ranks(replay=ranks), pinned_selection(replay=sels):
         cpu_loss, cpu_grads = _step_one_grads(cpu, batch.to("cpu"),
-                                              y.cpu())
+                                              y.cpu(), aux=aux)
     cpu_loss = float(cpu_loss)
     cpu_s = time.perf_counter() - t0
     loss_err, grad_err = _step_one_errors("step one", loss0, grads0,
@@ -1405,11 +1655,12 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
         step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
         loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
         grad_rel_tol=GRAD_REL_TOL, cpu_check_s=cpu_s,
+        step1_repeat_bit_equal=repeat,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[{tag}] {json.dumps(result)}", flush=True)
     if profile:
         result["profile"] = _idle_profile(
-            lambda: _train_step(model, opt, batch, y, aux=False), 3, med,
+            lambda: _train_step(model, opt, batch, y, aux=aux), 3, med,
             tag)
     return result
 
@@ -1469,6 +1720,8 @@ def phase_train_small(card, graphs, labels, which, profile: bool):
         opt.step()
         return loss.detach()
 
+    repeat = step_one_repeats(f"train_{which}",
+                              lambda: loss_and_grads(model, batch, y))
     # the main path, counted
     reset_counts()
     step_ms, losses = [], []
@@ -1518,7 +1771,7 @@ def phase_train_small(card, graphs, labels, which, profile: bool):
         k4_launches_per_step=launches["sorted_segment_sum"] / SMALL_STEPS,
         step1_loss=loss0, step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
         loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
-        grad_rel_tol=GRAD_REL_TOL)
+        grad_rel_tol=GRAD_REL_TOL, step1_repeat_bit_equal=repeat)
     print(f"[train_{which}] {json.dumps(result)}", flush=True)
     if profile:
         result["profile"] = _idle_profile(step, 3, med, f"train_{which}")
@@ -1526,39 +1779,46 @@ def phase_train_small(card, graphs, labels, which, profile: bool):
 
 
 def _mincut_model(device, alias, seed=0):
-    """``PoolingClassifier`` over ``get_pooler(alias)`` (MinCut, K = 16)
-    at the dense cell's width, f32, its dense GCN products in K3."""
+    """``PoolingClassifier`` over ``get_pooler(alias)`` (MinCut or BNPool,
+    K = 16) at the dense cell's width, f32, its dense GCN products in K3;
+    BNPool draws from a generator on ``device`` seeded ``seed + 1``."""
     from tgp_tpu_torch import PoolingClassifier, get_pooler
 
     g = torch.Generator().manual_seed(seed)
+    sample = torch.Generator(device=device).manual_seed(seed + 1)
     pooler = get_pooler(alias, in_channels=HIDDEN, k=MINCUT_K,
-                        device=device, generator=g)
+                        device=device, generator=g, sample_generator=sample)
     return PoolingClassifier(pooler, num_classes=CLASSES, hidden=HIDDEN,
                              in_channels=FEATURES, use_kernel=True,
                              device=device, generator=g)
 
 
 def phase_train_mincut(card, graphs, labels, profile: bool, alias="mincut"):
-    """MinCut trains MINCUT_STEPS Adam steps (f32; CE + the pooler's cut
-    and ortho losses) on the dense cell's 64 graphs: batched
-    (``alias="mincut"``) on ``prepare_batch(..., pooler=<instance>,
-    normalize=False)``'s dense batch; ``"mincut_u"`` on the same graphs
-    collated sparse by ``GraphLoader`` (the instance keeps it sparse), its
-    pooled graph dense ``[64, 16, 16]``.  K3 ``K3_PER_MINCUT_STEP`` times a
-    step and no other kernel; step one's loss and gradients held against
-    the CPU; the losses finite."""
+    """MinCut (or BNPool) trains MINCUT_STEPS Adam steps (f32; CE + the
+    pooler's losses: MinCut's cut and ortho, BNPool's quality, kl and
+    K_prior) on the dense cell's 64 graphs: batched (``alias="mincut"``,
+    ``"bnpool"``) on ``prepare_batch(..., pooler=<instance>,
+    normalize=False)``'s dense batch; ``"mincut_u"``/``"bnpool_u"`` on the
+    same graphs collated sparse by ``GraphLoader`` (the instance keeps it
+    sparse), its pooled graph dense ``[64, 16, 16]``.  The launches a step
+    are ``SOFT_LAUNCHES[alias]`` (K3 by route; the unbatched modes' sparse
+    sums and gathers on K4); step one repeats bit for bit (BNPool's
+    generator restored) and its loss and gradients are held against the
+    CPU, which takes the card's Gamma draws and negatives; the losses
+    finite."""
     from tgp_tpu_torch import DenseGraphBatch, from_graphs, prepare_batch
     from tgp_tpu_torch.data import GraphLoader
 
     model = _mincut_model("cuda", alias)
-    if alias == "mincut":
+    batched = not alias.endswith("_u")
+    if batched:
         raw = from_graphs(graphs, device="cuda")
     else:
         raw, _ = next(iter(GraphLoader(graphs, labels,
                                        batch_size=len(graphs),
                                        device="cuda")))
     batch = prepare_batch(raw, pooler=model.pooler, normalize=False)
-    if isinstance(batch, DenseGraphBatch) != (alias == "mincut"):
+    if isinstance(batch, DenseGraphBatch) != batched:
         raise AssertionError(f"{alias}: prepare_batch took the wrong route")
     y = torch.tensor(labels, device="cuda").long()
     init = {k: v.detach().cpu().clone() for k, v in
@@ -1585,14 +1845,20 @@ def phase_train_mincut(card, graphs, labels, profile: bool, alias="mincut"):
         opt.step()
         return loss.detach(), out
 
+    gens = [g for g in (getattr(model.pooler, "sample_generator", None),)
+            if g is not None]
+    repeat = step_one_repeats(f"train_{alias}",
+                              lambda: loss_and_grads(model, batch, y), gens)
     # the main path, counted
     reset_counts()
     step_ms, losses, per_step, aux = [], [], [], []
+    draws = []
     for i in range(MINCUT_STEPS):
         before = K3.launches
         if i == 0:
             def first():
-                got = loss_and_grads(model, batch, y)
+                with pinned_draws(record=draws):
+                    got = loss_and_grads(model, batch, y)
                 opt.step()
                 return got
 
@@ -1608,20 +1874,23 @@ def phase_train_mincut(card, graphs, labels, profile: bool, alias="mincut"):
     launches = read_counts()
     k3_routes = dict(K3.launches_by_route)
     want = dict.fromkeys(launches, 0)
-    want["bmm"] = K3_PER_MINCUT_STEP[alias] * MINCUT_STEPS
-    if launches != want or per_step != [K3_PER_MINCUT_STEP[alias]] * \
+    want.update({k: n * MINCUT_STEPS for k, n in SOFT_LAUNCHES[alias]
+                 .items()})
+    if launches != want or per_step != [SOFT_LAUNCHES[alias]["bmm"]] * \
             MINCUT_STEPS:
         raise AssertionError(f"{alias}: {MINCUT_STEPS} steps launched "
                              f"{launches} ({per_step} K3 a step), want "
                              f"{want}")
     if not np.isfinite(losses).all() or not all(
-            np.isfinite(a["cut_loss"]) and np.isfinite(a["ortho_loss"])
-            for a in aux):
+            set(a) == SOFT_LOSSES[alias.removesuffix("_u")]
+            and np.isfinite(list(a.values())).all() for a in aux):
         raise AssertionError(f"{alias}: non-finite losses {losses} {aux}")
 
     cpu = _mincut_model("cpu", alias)
     cpu.load_state_dict(init)
-    cpu_loss, _, cpu_grads = loss_and_grads(cpu, batch.to("cpu"), y.cpu())
+    with pinned_draws(replay=draws):
+        cpu_loss, _, cpu_grads = loss_and_grads(cpu, batch.to("cpu"),
+                                                y.cpu())
     cpu_loss = float(cpu_loss)
     loss_err, grad_err = _step_one_errors(f"{alias}: step one", loss0,
                                           grads0, cpu_loss, cpu_grads)
@@ -1631,10 +1900,13 @@ def phase_train_mincut(card, graphs, labels, profile: bool, alias="mincut"):
         dense_batch=isinstance(batch, DenseGraphBatch), step_ms=step_ms,
         step_ms_median=med, losses=losses, aux_losses=aux,
         launches=launches, k3_launches_per_step=per_step,
-        k3_launches_by_route=k3_routes, step1_loss=loss0,
-        step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
+        k3_launches_by_route=k3_routes,
+        k4_launches_by_route=dict(
+            _wrappers()["sorted_segment_sum"].launches_by_route),
+        step1_loss=loss0, step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
         loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
-        grad_rel_tol=GRAD_REL_TOL)
+        grad_rel_tol=GRAD_REL_TOL, step1_repeat_bit_equal=repeat,
+        draws_replayed=len(draws))
     tag = f"train_{alias}"
     print(f"[{tag}] {json.dumps(result)}", flush=True)
     if profile:
@@ -1703,9 +1975,184 @@ def phase_dense_family(card, graphs):
         if not torch.equal(ob.dense.mask, ou.dense.mask):
             raise AssertionError(f"{alias}: batched and _u masks differ")
         rows[-1]["batched_vs_u_max_abs"] = twin
+    rows.append(_bnpool_twins(inputs))
     print(f"[dense_family] {json.dumps(dict(card=card, rows=rows))}",
           flush=True)
     return rows
+
+
+def _bnpool_twins(inputs):
+    """BNPool batched and ``_u`` on one forward from shared draws: the
+    Gamma draws made once on the card (``[B, Nmax, K − 1]``, read at each
+    node's cell for the flat layout) and the ``_u`` negatives drawn once
+    on the card, both replayed into every run.  The pooled features and
+    adjacency of the two modes within FAMILY_TWIN_TOL of each other; each
+    mode's losses within FAMILY_LOSS_REL_TOL of its CPU run.  (The modes'
+    losses differ by design: the batched ones normalize by N² over every
+    pair, the unbatched ones by the sampled pairs.)"""
+    from tgp_tpu_torch import get_pooler
+    from tgp_tpu_torch.ops.sampling import negative_edge_sampling
+
+    dense, flat = inputs["cuda"][True], inputs["cuda"][False]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shape = (dense.num_graphs, dense.max_nodes, MINCUT_K - 1)
+    g_dense = [torch._standard_gamma(torch.full(shape, a, device="cuda"),
+                                     generator=gen) for a in (2.0, 3.0)]
+    cells = flat.node_graph.long() * dense.max_nodes + flat.node_pos.long()
+    g_flat = [g.reshape(-1, MINCUT_K - 1)[cells] for g in g_dense]
+    neg = negative_edge_sampling(flat, gen)
+    replays = {True: [g.cpu() for g in g_dense],
+               False: [g.cpu() for g in g_flat] + [tuple(t.cpu()
+                                                         for t in neg)]}
+    outs, row = {}, dict(pooler="bnpool", mode="batched_vs_u")
+    for batched in (True, False):
+        for dev in ("cuda", "cpu"):
+            pooler = get_pooler("bnpool", in_channels=FEATURES, k=MINCUT_K,
+                                batched=batched, device=dev,
+                                generator=torch.Generator().manual_seed(3))
+            with torch.no_grad(), pinned_draws(replay=replays[batched]):
+                outs[batched, dev] = pooler(inputs[dev][batched])
+        gpu, cpu = outs[batched, "cuda"], outs[batched, "cpu"]
+        errs = {k: abs(float(v) - float(cpu.loss[k]))
+                / max(abs(float(cpu.loss[k])), 1e-30)
+                for k, v in gpu.loss.items()}
+        bad = {k: e for k, e in errs.items() if not e <= FAMILY_LOSS_REL_TOL}
+        if bad or set(gpu.loss) != {"quality", "kl", "K_prior"}:
+            raise AssertionError(f"bnpool batched={batched}: losses on the "
+                                 f"card vs the CPU {bad}")
+        mode = "batched" if batched else "u"
+        row[f"losses_{mode}"] = {k: float(v) for k, v in gpu.loss.items()}
+        row[f"loss_rel_err_vs_cpu_{mode}"] = errs
+    ob, ou = outs[True, "cuda"], outs[False, "cuda"]
+    twin = {}
+    for f in ("x", "adj"):
+        a, b = getattr(ob.dense, f), getattr(ou.dense, f)
+        twin[f] = float((a - b).abs().max())
+        if not torch.allclose(a, b, rtol=FAMILY_TWIN_TOL, atol=FAMILY_TWIN_TOL):
+            raise AssertionError(f"bnpool: batched and _u pooled {f} differ "
+                                 f"by {twin[f]}")
+    if not torch.equal(ob.dense.mask, ou.dense.mask):
+        raise AssertionError("bnpool: batched and _u masks differ")
+    row["batched_vs_u_max_abs"] = twin
+    return row
+
+
+def phase_maxcut_dense(card, graphs, labels):
+    """MaxCut's two engines on the ASAP cell's batch (the dense cell's 64
+    graphs collated sparse by ``GraphLoader``: B·Nmax² = 4.19M ≤
+    ``DENSE_VOTE_BUDGET``, so ``"auto"`` takes the dense engine): one
+    forward and backward of ``get_pooler("maxcut", in_channels=128)``
+    with ``mp_impl="dense"`` and ``"sparse"`` on the same weights (the
+    maxcut loss + ⟨G, x'⟩).  The two engines' scores agree within
+    MAXCUT_ENGINE_TOL of the score scale after 12 rounds; the dense
+    engine's selection voted by both engines gives the same clusters;
+    each engine agrees with its CPU run on the card's selection: scores
+    within MAXCUT_ENGINE_TOL, the same clusters, gradients within
+    GRAD_REL_TOL of each leaf's scale.  The sparse engine's rounds run on
+    K1 (sorted into its layout once a forward), 12 launches forward and
+    12 backward.  ``fwd_bwd_ms``: the median of MAXCUT_DENSE_TIMED warm
+    forward-and-backward runs (pooler and input built, first run done)
+    between CUDA events."""
+    from tgp_tpu_torch import get_pooler
+    from tgp_tpu_torch.data import GraphLoader
+    from tgp_tpu_torch.ops.assignment import assign_all_nodes
+    from tgp_tpu_torch.ops.sparse import use_dense_vote
+    from tgp_tpu_torch.select.topk import topk_select_from_scores
+
+    batch, _ = next(iter(GraphLoader(graphs, labels, batch_size=len(graphs),
+                                     device="cuda")))
+    if not use_dense_vote(batch.num_graphs, batch.max_nodes):
+        raise AssertionError("the ASAP cell's batch is past the dense budget")
+
+    def engine(impl, device):
+        """``(fwd_bwd, grads)``: the pooler and its input built once;
+        ``fwd_bwd()`` runs one forward and backward from zeroed gradients
+        (``G`` drawn on the first), ``grads()`` copies the gradients."""
+        pooler = get_pooler("maxcut", in_channels=FEATURES, ratio=0.5,
+                            mp_impl=impl, device=device,
+                            generator=torch.Generator().manual_seed(4))
+        b = batch.to(device)
+        x = b.x.clone().requires_grad_(True)
+        bx, G = b.replace(x=x), []
+
+        def fwd_bwd():
+            pooler.zero_grad(set_to_none=True)
+            x.grad = None
+            out = pooler(bx)
+            if not G:
+                G.append(torch.randn(out.graph.x.shape, generator=torch
+                                     .Generator().manual_seed(5)).to(device))
+            (out.loss["maxcut_loss"] + (out.graph.x * G[0]).sum()).backward()
+            return out
+
+        def grads():
+            got = {k: q.grad.cpu() for k, q in pooler.named_parameters()}
+            got["x"] = x.grad.cpu()
+            return got
+        return fwd_bwd, grads
+
+    def run_cpu(impl, replay):
+        fwd_bwd, grads = engine(impl, "cpu")
+        with pinned_selection(replay=replay):
+            out = fwd_bwd()
+        return out, grads()
+
+    rows, nm = {}, batch.node_mask
+    for impl in ("dense", "sparse"):
+        fwd_bwd, grads_of = engine(impl, "cuda")
+        sels = []
+        reset_counts()
+        with pinned_selection(record=sels):
+            out = fwd_bwd()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        grads = grads_of()
+        want = dict.fromkeys(launches, 0)
+        want.update(MAXCUT_DENSE_LAUNCHES[impl])
+        if launches != want:
+            raise AssertionError(f"maxcut {impl}: launched {launches}, want "
+                                 f"{want}")
+        # warm: built once, first forward and backward done
+        times = [_timed_step(fwd_bwd)[0] for _ in range(MAXCUT_DENSE_TIMED)]
+        cpu_out, cpu_grads = run_cpu(impl, sels)
+        sc, cpu_sc = out.so.extras["scores"], cpu_out.so.extras["scores"]
+        scale = float(cpu_sc.abs().max())
+        score_err = float((sc.cpu() - cpu_sc)[nm.cpu()].abs().max()) / scale
+        same = torch.equal(out.so.cluster_index.cpu(),
+                           cpu_out.so.cluster_index)
+        loss_err, grad_err = _step_one_errors(
+            f"maxcut {impl}", float(out.loss["maxcut_loss"]), grads,
+            float(cpu_out.loss["maxcut_loss"]), cpu_grads)
+        if score_err > MAXCUT_ENGINE_TOL or not same:
+            raise AssertionError(f"maxcut {impl}: scores {score_err} of the "
+                                 f"scale from the CPU's, clusters equal "
+                                 f"{same}")
+        rows[impl] = dict(fwd_bwd_ms=statistics.median(times),
+                          fwd_bwd_ms_all=times, launches=launches,
+                          score_rel_err_vs_cpu=score_err,
+                          clusters_equal_cpu=same, loss_rel_err=loss_err,
+                          grad_rel_err=grad_err, scores=sc, so=out.so)
+    d_sc, s_sc = rows["dense"].pop("scores"), rows["sparse"].pop("scores")
+    engines = float((d_sc - s_sc)[nm].abs().max() / d_sc[nm].abs().max())
+    if engines > MAXCUT_ENGINE_TOL:
+        raise AssertionError(f"maxcut: the engines' scores differ by "
+                             f"{engines} of the scale")
+    so = topk_select_from_scores(d_sc.detach(), batch, 0.5)
+    votes = {impl: assign_all_nodes(
+        so, batch.senders, batch.receivers, batch.edge_mask,
+        node_pos=batch.node_pos, max_nodes=batch.max_nodes,
+        impl=impl).cluster_index for impl in ("dense", "sparse")}
+    if not torch.equal(votes["dense"], votes["sparse"]):
+        raise AssertionError("maxcut: the voting engines disagree on one "
+                             "selection")
+    for r in rows.values():
+        r.pop("so")
+    result = dict(card=card, graphs=batch.num_graphs,
+                  nodes=int(nm.sum()), edges=int(batch.edge_mask.sum()),
+                  engines_score_rel_diff=engines, votes_equal=True,
+                  tol=MAXCUT_ENGINE_TOL, **rows)
+    print(f"[maxcut_dense] {json.dumps(result)}", flush=True)
+    return result
 
 
 def phase_locality(card, graphs):
@@ -1836,6 +2283,7 @@ def main(argv=None) -> int:
     modes = phase_kernels(batch)
     d_graphs, d_labels = dense_graphs(0)
     modes.update(phase_kernels_readout(batch, d_graphs))
+    modes.update(phase_kernels_gather_grad(batch, d_graphs, d_labels))
 
     # the dense training slice's batch (bench.py::bench_jax): collated,
     # densified and normalized once, outside the steps
@@ -1867,21 +2315,20 @@ def main(argv=None) -> int:
                 for alias in ("ec", "kmis")}
     small["lap"] = phase_train_small(card, d_graphs, d_labels, "lap",
                                      args.profile)
+    serving_mc = phase_serving(card, graphs, batch, collate_ms,
+                               args.profile, alias="maxcut")
+    train_mc = phase_train_sparse(card, args.profile, alias="maxcut")
+    phase_maxcut_dense(card, d_graphs, d_labels)
     mincut = {alias: phase_train_mincut(card, d_graphs, d_labels,
                                         args.profile, alias)
-              for alias in ("mincut", "mincut_u")}
+              for alias in ("mincut", "mincut_u", "bnpool", "bnpool_u")}
     phase_dense_family(card, d_graphs)
     locality = phase_locality(card, d_graphs)
-    # the main paths' launches: K1 in sparse training, SAG's serving and
-    # training and the clustering poolers'; K2 in the clustering poolers'
-    # post-pool GCN and the locality path; K4 (the readout) in all of
-    # those, and the clustering poolers' fixed-order sums, ASAP's and
-    # PAN's steps; K3 in dense training, LaPool's and MinCut's steps
-    k1_runs = (sparse, serving_sag, train_sag, *serving_cl.values(),
-               *train_cl.values())
-    k2_runs = (*serving_cl.values(), *train_cl.values())
-    k4_runs = k1_runs + (small["asap"], small["pan"])
-    k3_runs = (train, small["lap"], *mincut.values())
+    # the main paths' launches, each kernel summed over every path that
+    # runs it (and K2 in the locality path)
+    all_runs = (serving, sparse, serving_sag, train_sag, *small.values(),
+                *serving_cl.values(), *train_cl.values(), train,
+                serving_mc, train_mc, *mincut.values())
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -1892,19 +2339,20 @@ def main(argv=None) -> int:
                     library_ms=mode["library_ms"])
 
     loc = locality["launches"]
+
+    def total(name):
+        return sum(r["launches"][name] for r in all_runs)
+
     kernels = [
-        entry("spmm_csr", SOURCE, REPLACES,
-              sum(r["launches"]["spmm_csr"] for r in k1_runs),
+        entry("spmm_csr", SOURCE, REPLACES, total("spmm_csr"),
               modes[f"K1 spmm_csr F={FEATURES} bfloat16"]),
         entry("segment_sum_sorted", SOURCE, K2_REPLACES,
-              loc["segment_sum_sorted"]
-              + sum(r["launches"]["segment_sum_sorted"] for r in k2_runs),
+              loc["segment_sum_sorted"] + total("segment_sum_sorted"),
               modes[f"K2 segment_sum_sorted F={FEATURES} bfloat16"]),
-        entry("bmm", K3_SOURCE, K3_REPLACES,
-              sum(r["launches"]["bmm"] for r in k3_runs),
+        entry("bmm", K3_SOURCE, K3_REPLACES, total("bmm"),
               k3_modes["fwd pre"]),
         entry("sorted_segment_sum", K4_SOURCE, K4_REPLACES,
-              sum(r["launches"]["sorted_segment_sum"] for r in k4_runs),
+              total("sorted_segment_sum"),
               modes[f"K4 readout F={HIDDEN} float32 segments=1"]),
         entry("spmm_banded", K5_SOURCE, K5_REPLACES, loc["spmm_banded"],
               next(m for k, m in band_modes.items() if k.startswith("K5"))),
@@ -1924,6 +2372,8 @@ def main(argv=None) -> int:
               for alias, r in train_cl.items()),
             ("dense training", train, f"{DENSE_STEPS} steps"),
             ("LaPool training", small["lap"], f"{SMALL_STEPS} steps"),
+            ("maxcut serving", serving_mc, f"{REQUESTS} requests"),
+            ("maxcut training", train_mc, f"{CLUSTER_STEPS} steps"),
             *((f"{alias} training", r, f"{MINCUT_STEPS} steps")
               for alias, r in mincut.items()))
     print("launches: " + "; ".join(

@@ -7,8 +7,8 @@ linear head, trained with Adam.
 
 Poolers: the port's ``get_pooler`` aliases (``topk``, ``sag``, ``asap``,
 ``pan``, ``ec``, ``graclus``, ``kmis``, ``nopool``, ``lap``, ``mincut``,
-``diff``, ``dmon``, ``hosc``, ``jb``, ``acc``, the last six also as
-``<alias>_u``).  Only the ``synthetic`` dataset is ported so far.
+``diff``, ``dmon``, ``hosc``, ``jb``, ``acc``, ``bnpool``, the last
+seven also as ``<alias>_u``, and ``maxcut``).  Only the ``synthetic`` dataset is ported so far.
 """
 
 from __future__ import annotations
@@ -48,10 +48,14 @@ def build_model(alias: str, num_classes: int, hidden: int,
                 seed: int = 0) -> PoolingClassifier:
     """The example's classifier, its weights drawn from one seeded
     generator; ``use_kernel`` is ``PoolingClassifier``'s (True runs a
-    dense pooled graph's GCN products in K3)."""
+    dense pooled graph's GCN products in K3).  BNPool's Beta draws (and
+    ``bnpool_u``'s negatives) come from a second generator on the device,
+    seeded ``seed + 1``, as the JAX example threads its ``"sample"``
+    stream."""
     g = torch.Generator().manual_seed(seed)
+    sample = torch.Generator(device=device).manual_seed(seed + 1)
     pooler = get_pooler(alias, in_channels=hidden, ratio=0.5, k=16,
-                        device=device, generator=g)
+                        device=device, generator=g, sample_generator=sample)
     return PoolingClassifier(pooler, num_classes=num_classes, hidden=hidden,
                              in_channels=in_channels,
                              pre_normalized=pre_normalized,

@@ -627,7 +627,8 @@ def test_cluster_model_runs_one_k1_pass_each_way(alias, monkeypatch):
     of the reduce, the merge of duplicate edges); the merged pooled graph
     ascends by receiver, so the post-pool GCN takes the sorted branch (its
     degree and aggregation on K2, as on the card, where its edge count
-    puts it in the kernel regime); the readout's K4 once."""
+    puts it in the kernel regime); the readout's K4 once.  Backward, each
+    gather's gradient is a fixed-order sum on K4 (``gather_rows``)."""
     import tgp_tpu_torch.ops.kernels.segment_spmm as K
 
     _, tb = _batches(_graphs(20, count=2), sort=True)
@@ -658,4 +659,6 @@ def test_cluster_model_runs_one_k1_pass_each_way(alias, monkeypatch):
     assert calls == forward
     torch.nn.functional.cross_entropy(
         logits, torch.tensor([0, 2]).long()).backward()
-    assert calls == forward + ["spmm_csr"]
+    # backward: the fixed-order gradients of the gathers (EC's two score
+    # gathers, the post-pool GCN's message gather) on K4, then K1's d_h
+    assert calls == forward + k4 * (3 if alias == "ec" else 1) + ["spmm_csr"]

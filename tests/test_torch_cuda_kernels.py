@@ -1330,3 +1330,225 @@ def test_cuda_bmm_splits_batches_above_the_grid_limit():
     assert BMM.bmm.launches == before + 2
     assert BMM.MAX_BATCH == 65_535 and got.shape == (70_000, 8, 8)
     _bmm_check(got, BMM.bmm_plain(a, b), BMM.bmm_plain(a.abs(), b.abs()))
+
+
+def _grad_twice(fn, leaves):
+    """``fn()`` (a scalar) and the gradients of ``leaves``, twice, each
+    copied to the CPU."""
+    out = []
+    for _ in range(2):
+        for t in leaves:
+            t.grad = None
+        loss = fn()
+        loss.backward()
+        out.append((loss.detach().cpu(),)
+                   + tuple(t.grad.detach().cpu() for t in leaves))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_gather_rows_gradient_repeats_bit_equal(dtype):
+    """``gather_rows``' backward adds each row's cotangents by K4 in a
+    fixed order, after a stable sort of the ids: two backward passes give
+    the same bits (one K4 launch each), within f32 rounding of the CPU's
+    ``index_select`` gradient."""
+    from tgp_tpu_torch.ops.segment import gather_rows
+
+    _skip_without_card()
+    rng = np.random.default_rng(40)
+    n, e = 5_000, 400_000  # ~80 gathers a row
+    idx = torch.tensor(rng.integers(0, n, e))
+    x0 = torch.tensor(rng.normal(size=(n, 16)).astype(np.float32)).to(
+        getattr(torch, dtype))
+    g = torch.tensor(rng.normal(size=(e, 16)).astype(np.float32))
+    x = x0.cuda().requires_grad_(True)
+    before = K.sorted_segment_sum.launches
+    runs = _grad_twice(lambda: (gather_rows(x, idx.cuda(), n)
+                                .float() * g.cuda()).sum(), [x])
+    assert K.sorted_segment_sum.launches == before + 2
+    _bit_equal(runs)
+    xc = x0.clone().requires_grad_(True)
+    (xc.index_select(0, idx).float() * g).sum().backward()
+    tol = 1e-5 * float(g.abs().sum() / n) * 80
+    if dtype == "bfloat16":
+        tol += 2.0 ** -7 * float(xc.grad.float().abs().max())
+    assert (runs[0][1].float() - xc.grad.float()).abs().max() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_segment_sum_unsorted_repeats_bit_equal(dtype):
+    """``segment_sum`` of floats on unsorted ids (a sort, then K4): two
+    calls give the same bits, one K4 launch each, within f32 rounding of
+    the CPU's; integer data keeps ``index_add_`` (no launch)."""
+    from tgp_tpu_torch.ops.segment import segment_sum
+
+    _skip_without_card()
+    rng = np.random.default_rng(41)
+    ids = torch.tensor(rng.integers(0, 3_000, 500_000)).cuda()
+    data = torch.tensor(rng.normal(size=(500_000, 8)).astype(np.float32)
+                        ).to(getattr(torch, dtype)).cuda()
+    mask = torch.tensor(rng.random(500_000) < 0.9).cuda()
+    before = K.sorted_segment_sum.launches
+    runs = _twice(lambda: segment_sum(data, ids, 3_000, mask=mask))
+    assert K.sorted_segment_sum.launches == before + 2
+    _bit_equal(runs)
+    ref = segment_sum(data.cpu(), ids.cpu(), 3_000, mask=mask.cpu())
+    scale = segment_sum(data.abs().float().cpu(), ids.cpu(), 3_000)
+    slack = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    err = (runs[0][0].float() - ref.float()).abs() - slack * ref.float().abs()
+    assert (err <= 1e-5 * scale + 1e-6).all()
+    ints = torch.tensor(rng.integers(0, 9, 500_000), dtype=torch.int32)
+    segment_sum(ints.cuda(), ids, 3_000)
+    assert K.sorted_segment_sum.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_pan_scale_is_an_indexed_write():
+    """PAN's dense MET path (``exact_met_support``): the per-node scale is
+    an indexed write, so a forward and backward repeat bit for bit, within
+    f32 rounding of the CPU's."""
+    from tgp_tpu_torch.graph import from_graphs
+    from tgp_tpu_torch.mp.pan import PANConv
+
+    _skip_without_card()
+    graphs = _dup_graphs(42, count=6, n=60, e=400)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        batch = from_graphs(graphs, device=dev)
+        conv = PANConv(16, 8, filter_size=2, exact_met_support=True,
+                       device=dev, generator=torch.Generator().manual_seed(0))
+        params = list(conv.parameters())
+
+        def run():
+            out, deg, met_w = conv(batch)
+            return (out.square().sum() + deg.square().sum()
+                    + met_w.square().sum())
+
+        outs[dev] = (_grad_twice(run, params) if dev == "cuda"
+                     else _grad_twice(run, params)[:1])
+    _bit_equal(outs["cuda"])
+    for got, ref in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert (got - ref).abs().max() <= 1e-4 * max(ref.abs().max(), 1)
+
+
+def _maxcut_graph(seed, n=30_000, e=400_000, feat=32):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, feat)).astype(np.float32),
+            np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("csr", [True, False], ids=["csr", "sorted_here"])
+def test_cuda_maxcut_delta_gcn_runs_on_k1(csr):
+    """MaxCut's sparse engine: each round's product is one K1 launch
+    forward and one backward (12 and 12), no other launch of K1; scores
+    and gradients repeat bit for bit and agree with the plain version on
+    the CPU within f32 rounding."""
+    from tgp_tpu_torch.graph import from_graphs
+    from tgp_tpu_torch.select.maxcut import MaxCutScoreNet
+
+    _skip_without_card()
+    graph = _maxcut_graph(43)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        batch = from_graphs([graph], sort_edges=csr, device=dev)
+        net = MaxCutScoreNet(32, mp_impl="sparse", device=dev,
+                             generator=torch.Generator().manual_seed(1))
+        params = list(net.parameters())
+        probe = torch.randn(batch.num_nodes, generator=torch.Generator()
+                            .manual_seed(2)).to(dev)
+        before = K.spmm_csr.launches
+        runs = _grad_twice(lambda: (net(batch) * probe).sum(), params)
+        if dev == "cuda":
+            assert K.spmm_csr.launches == before + 2 * 24
+            _bit_equal(runs)
+        outs[dev] = runs[0]
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        assert (got - ref).abs().max() <= 1e-4 * max(ref.abs().max(), 1)
+
+
+@pytest.mark.cuda
+def test_cuda_served_maxcut_forward_is_bit_equal_twice():
+    """A served MaxCut model (bf16 GCN, f32 score net on K1) on a request
+    at the kernel regime: two forwards give the same logits and clusters
+    bit for bit; every valid node is assigned."""
+    from tgp_tpu_torch import PoolingClassifier, get_pooler
+    from tgp_tpu_torch.graph import from_graphs
+
+    _skip_without_card()
+    x, ei = _maxcut_graph(44, feat=64)
+    batch = from_graphs([(x, ei)], sort_edges=True, device="cuda")
+    g = torch.Generator().manual_seed(3)
+    model = PoolingClassifier(get_pooler("maxcut", in_channels=64,
+                                         device="cuda", generator=g),
+                              num_classes=3, hidden=64, in_channels=64,
+                              compute_dtype=torch.bfloat16, device="cuda",
+                              generator=g).eval()
+    with torch.inference_mode():
+        runs = _twice(lambda: (lambda lo, o: (lo.float(), o.so.cluster_index))(
+            *model(batch)))
+        _, out = model(batch)
+    _bit_equal(runs)
+    assert bool(out.so.node_sel_mask[batch.node_mask].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [True, False], ids=["batched", "u"])
+def test_cuda_bnpool_on_replayed_draws_gives_the_cpus_loss(batched):
+    """BNPool's Gamma draws (and ``_u``'s negatives) made on the card and
+    replayed on the CPU: the same three losses within 1e-4, and a second
+    forward from the same generator state repeats the card's bits."""
+    from tgp_tpu_torch import get_pooler, prepare_batch
+    from tgp_tpu_torch.graph import from_graphs
+    from tgp_tpu_torch.poolers import bnpool
+    from tgp_tpu_torch.select import dp
+
+    _skip_without_card()
+    graphs = _dup_graphs(45, count=8, n=120, e=600)
+    real_gamma, real_neg = dp.draw_gamma, bnpool.negative_edge_sampling
+    rec = []
+
+    def gamma(alpha, gen):
+        rec.append(real_gamma(alpha, gen))
+        return rec[-1]
+
+    def neg(batch, gen, **kw):
+        rec.append(real_neg(batch, gen, **kw))
+        return rec[-1]
+
+    losses = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            b = from_graphs(graphs, device=dev)
+            b = prepare_batch(b, densify=True) if batched else b
+            gen = torch.Generator(device=dev).manual_seed(7)
+            pool = get_pooler("bnpool", in_channels=16, k=6, batched=batched,
+                              device=dev, sample_generator=gen,
+                              generator=torch.Generator().manual_seed(0))
+            if dev == "cuda":
+                dp.draw_gamma, bnpool.negative_edge_sampling = gamma, neg
+                state = gen.get_state()
+                runs = []
+                for _ in range(2):
+                    gen.set_state(state)
+                    with torch.no_grad():
+                        out = pool(b)
+                    runs.append(tuple(out.loss[k].cpu() for k in
+                                      sorted(out.loss)))
+                _bit_equal(runs)
+                replay = [tuple(t.cpu() for t in r) if isinstance(r, tuple)
+                          else r.cpu() for r in rec[:len(rec) // 2]]
+            else:
+                dp.draw_gamma = lambda alpha, g: replay.pop(0)
+                bnpool.negative_edge_sampling = lambda bb, g, **kw: \
+                    replay.pop(0)
+                with torch.no_grad():
+                    out = pool(b)
+                assert not replay
+            losses[dev] = {k: float(v) for k, v in out.loss.items()}
+    finally:
+        dp.draw_gamma, bnpool.negative_edge_sampling = real_gamma, real_neg
+    for k, ref in losses["cpu"].items():
+        assert abs(losses["cuda"][k] - ref) <= 1e-4 * max(abs(ref), 1), k

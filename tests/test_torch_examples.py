@@ -21,7 +21,9 @@ torch.set_num_threads(1)
                                          ("kmis", "sparse"),
                                          ("lap", "sparse"),
                                          ("mincut", "dense"),
-                                         ("mincut_u", "sparse")])
+                                         ("mincut_u", "sparse"),
+                                         ("bnpool", "dense"),
+                                         ("maxcut", "sparse")])
 def test_classification_twin_trains(alias, route):
     acc = ex.main(alias, epochs=2, verbose=False, device="cpu")
     assert acc > 0.6

@@ -4,7 +4,7 @@ has the same function: the pooler registry's ``register_pooler`` and
 csbm_graph`` and the 20 names of ``tgp_tpu.ops``; the ``remat`` flag of
 both classifiers (the same loss and gradients with and without it, as
 ``tests/test_models.py::test_remat_gradient_invariance`` pins JAX's); the
-fixed-order sums (``segment_sum_ordered``, the merge of ``coalesce`` and
+fixed-order sums (``segment_sum`` on floats, the merge of ``coalesce`` and
 the adjacency of ``to_dense``), equal to JAX's results (the merged edges
 as a set where the port orders them receiver-major); and the sorted flag
 of a pooled batch and of k-MIS's merged one, set only where the edges
@@ -28,7 +28,7 @@ from tgp_tpu_torch import DenseTopkClassifier, PoolingClassifier, prepare_batch
 from tgp_tpu_torch.datasets.synthetic import csbm_graph
 from tgp_tpu_torch.graph import from_graphs as t_from
 from tgp_tpu_torch.graph import to_dense
-from tgp_tpu_torch.ops.segment import segment_sum, segment_sum_ordered
+from tgp_tpu_torch.ops.segment import segment_sum
 from tgp_tpu_torch.poolers import (get_pooler, pooler_map, register_pooler,
                                    unregister_pooler)
 from tgp_tpu_torch.poolers.nopool import NoPool
@@ -143,16 +143,28 @@ def test_remat_gradient_invariance(which):
         torch.testing.assert_close(g1[k], g0[k], rtol=1e-5, atol=1e-6)
 
 
+def _index_add_sum(data, ids, n, mask=None):
+    """The scatter the fixed-order sum replaced: masked ``index_add_``."""
+    keep = (ids >= 0) & (ids < n)
+    if mask is not None:
+        keep = keep & mask
+    data = torch.where(keep.reshape(keep.shape + (1,) * (data.dim() - 1)),
+                       data, 0)
+    return torch.zeros((n,) + data.shape[1:], dtype=data.dtype).index_add_(
+        0, torch.where(keep, ids, 0), data)
+
+
 def test_segment_sum_ordered_matches_segment_sum():
-    """The fixed-order sum: ``segment_sum``'s values (masks, ids out of
-    range, sorted or not), and the gradient of a gather."""
+    """The fixed-order sum (``segment_sum`` on floats): the values of a
+    masked ``index_add_`` (masks, ids out of range, sorted or not), and
+    the gradient of a gather."""
     rng = np.random.default_rng(5)
     data = torch.tensor(rng.normal(size=(300, 4)).astype(np.float32),
                         requires_grad=True)
     ids = torch.tensor(rng.integers(-2, 23, 300))
     mask = torch.tensor(rng.random(300) < 0.8)
-    got = segment_sum_ordered(data, ids, 20, mask=mask)
-    ref = segment_sum(data, ids, 20, mask=mask)
+    got = segment_sum(data, ids, 20, mask=mask)
+    ref = _index_add_sum(data.detach(), ids, 20, mask=mask)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
     got.pow(2).sum().backward()
     keep = (ids >= 0) & (ids < 20) & mask
@@ -160,11 +172,12 @@ def test_segment_sum_ordered_matches_segment_sum():
     torch.testing.assert_close(data.grad, want)
     s_ids, order = torch.sort(ids.clamp(0, 19))
     torch.testing.assert_close(
-        segment_sum_ordered(data.detach()[order], s_ids, 20, ids_sorted=True),
-        segment_sum(data.detach(), ids.clamp(0, 19), 20), rtol=0, atol=1e-5)
+        segment_sum(data.detach()[order], s_ids, 20, ids_sorted=True),
+        _index_add_sum(data.detach(), ids.clamp(0, 19), 20), rtol=0,
+        atol=1e-5)
     ints = torch.tensor(rng.integers(0, 9, 300), dtype=torch.int32)
-    assert torch.equal(segment_sum_ordered(ints, ids, 20),
-                       segment_sum(ints, ids, 20))
+    assert torch.equal(segment_sum(ints, ids, 20),
+                       _index_add_sum(ints, ids, 20))
 
 
 @pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
@@ -222,22 +235,22 @@ def test_kmis_undirected_merge_is_sorted_as_flagged(monkeypatch):
 
     def spy(data, ids, n, *, ids_sorted=False):
         seen.append((ids, ids_sorted))
-        return segment_sum_ordered(data, ids, n, ids_sorted=ids_sorted)
+        return segment_sum(data, ids, n, ids_sorted=ids_sorted)
 
     batch = t_from(_dup_graphs(9), **CPU)
     sel = kmis_mod.KMISSelect(5, order_k=2, score_heuristic="weighted",
                               force_undirected=True,
                               generator=torch.Generator().manual_seed(0),
                               **CPU)
-    monkeypatch.setattr(kmis_mod, "segment_sum_ordered", spy)
+    monkeypatch.setattr(kmis_mod, "segment_sum", spy)
     with torch.no_grad():
         rank = sel(batch).extras["rank"]
         assert len(seen) == 2
         assert all(flag and (ids.diff() >= 0).all() for ids, flag in seen)
         seen.clear()
         monkeypatch.setattr(
-            kmis_mod, "segment_sum_ordered",
-            lambda d, i, n, ids_sorted=False: segment_sum_ordered(d, i, n))
+            kmis_mod, "segment_sum",
+            lambda d, i, n, ids_sorted=False: segment_sum(d, i, n))
         assert torch.equal(sel(batch).extras["rank"], rank)
 
 
@@ -250,3 +263,102 @@ def test_to_dense_sums_duplicate_edges_as_jax():
     np.testing.assert_array_equal(_np(got.x), _np(ref.x))
     np.testing.assert_array_equal(_np(got.mask), _np(ref.mask))
     np.testing.assert_allclose(_np(got.adj), _np(ref.adj), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(40, 6), (40,)], ids=["rows", "vector"])
+def test_gather_rows_gives_index_selects_values_and_gradients(shape):
+    """``gather_rows``: ``index_select``'s rows, and its gradient (each
+    row's cotangents summed by K4's plain version, in the order of a
+    stable sort of the ids) within f32 rounding of ``index_select``'s
+    ``index_add_``; one K4 call a backward, none forward."""
+    import tgp_tpu_torch.ops.kernels.segment_spmm as K
+    from tgp_tpu_torch.ops.segment import gather_rows
+
+    rng = np.random.default_rng(50)
+    x0 = torch.tensor(rng.normal(size=shape).astype(np.float32))
+    idx = torch.tensor(rng.integers(0, shape[0], 500))
+    g = torch.tensor(rng.normal(size=(500,) + shape[1:]).astype(np.float32))
+    calls = []
+    real = K._k4_sum
+    x = x0.clone().requires_grad_(True)
+    try:
+        K._k4_sum = lambda *a: calls.append(True) or real(*a)
+        out = gather_rows(x, idx, shape[0])
+        assert calls == []
+        (out * g).sum().backward()
+    finally:
+        K._k4_sum = real
+    assert calls == [True]
+    ref = x0.clone().requires_grad_(True)
+    r_out = ref.index_select(0, idx)
+    (r_out * g).sum().backward()
+    assert torch.equal(out.detach(), r_out.detach())
+    torch.testing.assert_close(x.grad, ref.grad, rtol=1e-5, atol=1e-5)
+    # a tensor without a gradient, or an integer one, is gathered as it is
+    assert torch.equal(gather_rows(x0, idx, shape[0]), x0[idx])
+    ints = torch.arange(shape[0])
+    assert torch.equal(gather_rows(ints, idx, shape[0]), idx)
+    with pytest.raises(ValueError, match="rows"):
+        gather_rows(x0, idx, shape[0] + 1)
+
+
+def test_float_segment_sum_takes_the_fixed_order(monkeypatch):
+    """``segment_sum`` of f32 and bf16 rows goes through K4's entry once,
+    with the rows' sort order and mask (its plain path here), never
+    through ``index_add_``'s scatter; integer rows keep the scatter."""
+    import tgp_tpu_torch.ops.kernels.segment_spmm as K
+
+    calls = []
+    real = K._k4_sum
+
+    def spy(x, perm, keep, row_ptr, num_rows, route):
+        calls.append((x.dtype, perm is not None, keep is not None))
+        return real(x, perm, keep, row_ptr, num_rows, route)
+
+    monkeypatch.setattr(K, "_k4_sum", spy)
+    rng = np.random.default_rng(51)
+    ids = torch.tensor(rng.integers(0, 7, 90))
+    mask = torch.tensor(rng.random(90) < 0.8)
+    for dtype in (torch.float32, torch.bfloat16):
+        data = torch.tensor(rng.normal(size=(90, 3)).astype(np.float32)
+                            ).to(dtype)
+        got = segment_sum(data, ids, 7, mask=mask)
+        want = torch.zeros(7, 3).index_add_(
+            0, ids, torch.where(mask[:, None], data.float(), 0.0))
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    assert calls == [(torch.float32, True, True), (torch.bfloat16, True, True)]
+    segment_sum(torch.ones(90, dtype=torch.int32), ids, 7, mask=mask)
+    segment_sum(torch.ones(90, dtype=torch.float64), ids, 7)
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_pan_scale_still_equals_jax(normalize):
+    """PAN's dense MET scale is now an indexed write (each valid node owns
+    its cell, padding writes a spare one) where it was an ``index_put``
+    with ``accumulate=True``: the MET weights, degrees and output still
+    equal JAX's on a padded batch whose padding nodes alias a real
+    node's cell."""
+    import jax
+
+    from tgp_tpu.mp.pan import PANConv as JPAN
+    from tgp_tpu_torch.models.convert import params_from_flax
+    from tgp_tpu_torch.mp import PANConv
+
+    graphs = [g[:2] for g in _dup_graphs(52, count=3)]
+    kw = dict(pad_nodes=48, pad_edges=256)
+    jb, tb = j_from(graphs, **kw), t_from(graphs, **kw, **CPU)
+    jconv = JPAN(4, filter_size=2, normalize=normalize,
+                 exact_met_support=True)
+    p = jconv.init(jax.random.key(0), jb)
+    leaves, tree = jax.tree.flatten(p)
+    rng = np.random.default_rng(53)
+    p = jax.tree.unflatten(tree, [jnp.asarray(np.asarray(v) + 0.1 * rng.normal(
+        size=v.shape).astype(np.float32)) for v in leaves])
+    tconv = PANConv(5, 4, filter_size=2, normalize=normalize,
+                    exact_met_support=True, **CPU)
+    sd = params_from_flax({"PANConv_0": p["params"]})
+    tconv.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()})
+    for got, ref in zip(tconv(tb), jconv.apply(p, jb)):
+        np.testing.assert_allclose(_np(got), _np(ref), rtol=0,
+                                   atol=1e-5 * max(1, np.abs(_np(ref)).max()))

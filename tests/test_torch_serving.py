@@ -159,7 +159,11 @@ assert {'tgp_tpu_torch.ops.kernels.bmm', 'tgp_tpu_torch.models.prepare',
         'tgp_tpu_torch.poolers.mincut', 'tgp_tpu_torch.poolers.diffpool',
         'tgp_tpu_torch.poolers.dmon', 'tgp_tpu_torch.poolers.hosc',
         'tgp_tpu_torch.poolers.just_balance',
-        'tgp_tpu_torch.poolers.asym_cheeger_cut'} <= set(mods), mods
+        'tgp_tpu_torch.poolers.asym_cheeger_cut',
+        'tgp_tpu_torch.ops.sampling', 'tgp_tpu_torch.ops.lap',
+        'tgp_tpu_torch.ops.assignment', 'tgp_tpu_torch.select.dp',
+        'tgp_tpu_torch.select.maxcut', 'tgp_tpu_torch.poolers.bnpool',
+        'tgp_tpu_torch.poolers.maxcut'} <= set(mods), mods
 import examples.classification_torch
 import examples.classification_pan_torch
 bad = sorted(m for m in sys.modules
@@ -176,6 +180,9 @@ for call in (lambda: tgp_tpu_torch.from_graphs(g),
              lambda: tgp_tpu_torch.get_pooler('pan', in_channels=4),
              lambda: tgp_tpu_torch.get_pooler('mincut', in_channels=4),
              lambda: tgp_tpu_torch.get_pooler('acc_u', in_channels=4),
+             lambda: tgp_tpu_torch.get_pooler('bnpool', in_channels=4),
+             lambda: tgp_tpu_torch.get_pooler('bnpool_u', in_channels=4),
+             lambda: tgp_tpu_torch.get_pooler('maxcut', in_channels=4),
              lambda: GraphLoader(g),
              lambda: examples.classification_torch.main('sag', epochs=1),
              lambda: tgp_tpu_torch.PoolingClassifier(None, 3, hidden=4),

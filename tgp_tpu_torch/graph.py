@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
-from tgp_tpu_torch.ops.segment import node_cells, segment_sum_ordered
+from tgp_tpu_torch.ops.segment import node_cells, segment_sum
 
 __all__ = ["GraphBatch", "DenseGraphBatch", "from_graphs", "to_dense",
            "from_dense", "ceil_to"]
@@ -309,7 +309,7 @@ def to_dense(batch: GraphBatch, max_nodes: Optional[int] = None
     and the mask are plain indexed writes (masked nodes write to a spare
     cell past the end).  Duplicate edges are summed in a fixed order: the
     edges sorted stably by their flat cell, each run of one cell summed by
-    :func:`~tgp_tpu_torch.ops.segment.segment_sum_ordered` (K4 on the
+    :func:`~tgp_tpu_torch.ops.segment.segment_sum` (K4 on the
     card), and every position writes its run's sum to the cell."""
     Nmax = max_nodes if max_nodes is not None else batch.max_nodes
     B, F = batch.num_graphs, batch.num_features
@@ -333,7 +333,7 @@ def to_dense(batch: GraphBatch, max_nodes: Optional[int] = None
     is_head[1:] = key[1:] != key[:-1]
     run_id = torch.cumsum(is_head, 0) - 1
     w = torch.where(batch.edge_mask, batch.edge_weight, 0.0)[order]
-    run_sum = segment_sum_ordered(w, run_id, w.shape[0], ids_sorted=True)
+    run_sum = segment_sum(w, run_id, w.shape[0], ids_sorted=True)
     adj = w.new_zeros(n_cells + 1).index_put_((key,), run_sum[run_id])
     return DenseGraphBatch(x=x_dense[:spare].view(B, Nmax, F),
                            adj=adj[:n_cells].view(B, Nmax, Nmax),

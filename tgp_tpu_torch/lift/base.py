@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from tgp_tpu_torch.ops.segment import dense_rows, node_cells, segment_sum
+from tgp_tpu_torch.ops.segment import (dense_rows, gather_rows, node_cells,
+                                       segment_sum)
 from tgp_tpu_torch.select.base import SelectOutput
 
 __all__ = ["lift_sparse", "lift_dense_batched", "lift_dense_unbatched",
@@ -123,8 +124,8 @@ def lift_dense_unbatched(x_pool: torch.Tensor, so: SelectOutput,
         s = torch.matmul(sd, inv).reshape(
             -1, K).index_select(0, cells)
     if reduce_op == "max":
-        contrib = s[:, :, None] * x_pool.index_select(
-            0, so.node_graph.long())
+        contrib = s[:, :, None] * gather_rows(x_pool, so.node_graph,
+                                              x_pool.shape[0])
         contrib = torch.where((s != 0)[:, :, None], contrib, -torch.inf)
         out = contrib.amax(1)
         out = torch.where(torch.isfinite(out), out, 0.0)

@@ -1,6 +1,6 @@
 """Carry flax weights of ``tgp_tpu``'s ``PoolingClassifier`` (with the
-top-k, SAG, ASAP, PAN, edge-contraction, k-MIS or a dense soft-cluster
-pooler, or one without parameters), ``DenseTopkClassifier`` and the
+top-k, SAG, ASAP, PAN, edge-contraction, k-MIS, MaxCut, a dense
+soft-cluster pooler or BNPool, or one without parameters), ``DenseTopkClassifier`` and the
 ``PANNet`` of ``examples/classification_pan.py`` over to the port's
 modules, so both packages compute the same function.  A flax gradient
 tree has the same paths and maps the same way, so gradients compare leaf
@@ -34,6 +34,15 @@ _RULES = (
      r"pooler.selector.mlp.layers.\1.weight", True),
     (r"pooler/selector/SelectMLP_0/Dense_(\d+)/bias",
      r"pooler.selector.mlp.layers.\1.bias", False),
+    # BNPool's connectivity matrix
+    (r"pooler/K", r"pooler.K", False),
+    # MaxCut's score net: Dense_i in creation order, mp_bias_i per round
+    (r"pooler/selector/MaxCutScoreNet_0/Dense_(\d+)/kernel",
+     r"pooler.selector.score_net.layers.\1.weight", True),
+    (r"pooler/selector/MaxCutScoreNet_0/Dense_(\d+)/bias",
+     r"pooler.selector.score_net.layers.\1.bias", False),
+    (r"pooler/selector/MaxCutScoreNet_0/mp_bias_(\d+)",
+     r"pooler.selector.score_net.mp_bias.\1", False),
     # the edge-contraction and k-MIS scorers
     (r"pooler/selector/lin/kernel", r"pooler.selector.lin.weight", True),
     (r"pooler/selector/lin/bias", r"pooler.selector.lin.bias", False),

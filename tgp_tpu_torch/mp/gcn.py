@@ -38,7 +38,7 @@ from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import DenseGraphBatch, GraphBatch
-from tgp_tpu_torch.ops.segment import segment_sum
+from tgp_tpu_torch.ops.segment import gather_rows, segment_sum
 from tgp_tpu_torch.ops.sparse import (
     add_remaining_self_loops,
     normalize_adj_sym,
@@ -257,9 +257,9 @@ class GCNConv(nn.Module):
             unit = _unit_loops(batch).to(deg.dtype)
             deg = deg + unit
         dinv = _dinv(deg)
-        # index_select: its gradient is one index_add_ (h[s]'s is a sort
-        # and a serial pass over each run of repeated senders)
-        msgs = h.index_select(0, s) * (w * dinv[s] * dinv[r])[:, None]
+        # a batch without CSR metadata holds no sender layout: the
+        # gather's gradient sorts the senders once a backward
+        msgs = gather_rows(h, s, N) * (w * dinv[s] * dinv[r])[:, None]
         out = segment_sum_sorted(msgs.contiguous(), batch.receivers, N,
                                  row_ptr)
         if self.add_self_loops:

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
-from tgp_tpu_torch.ops.segment import segment_sum
+from tgp_tpu_torch.ops.segment import gather_rows, segment_sum
 from tgp_tpu_torch.utils.linear import apply_linear, lecun_normal_linear
 
 __all__ = ["LEConv"]
@@ -49,8 +49,8 @@ class LEConv(nn.Module):
         b = apply_linear(self.lin_1, x)
         root = apply_linear(self.lin_2, x)
         s, r = senders.long(), receivers.long()
-        msg = edge_weight[:, None] * (a.index_select(0, s)
-                                      - b.index_select(0, r))
+        msg = edge_weight[:, None] * (gather_rows(a, s, x.shape[0])
+                                      - gather_rows(b, r, x.shape[0]))
         out = root + segment_sum(msg, receivers, num_nodes)
         if node_mask is not None:
             out = torch.where(node_mask[:, None], out, 0.0)

@@ -115,10 +115,12 @@ class PANConv(nn.Module):
             met = met + w[l] * cur
         g, p = batch.node_graph.long(), batch.node_pos.long()
         if self.normalize:
-            dv = torch.zeros(adj.shape[:2], dtype=adj.dtype,
-                             device=adj.device)
-            dv = dv.index_put((g, p), torch.where(nm, dinv, 0.0),
-                              accumulate=True)
+            # each valid node owns its cell: an indexed write (masked
+            # nodes write to a spare cell past the end)
+            B, Nm = adj.shape[:2]
+            cell = torch.where(nm, g * Nm + p, B * Nm)
+            dv = adj.new_zeros(B * Nm + 1).index_put((cell,), dinv)
+            dv = dv[:-1].view(B, Nm)
             met = dv[:, :, None] * met * dv[:, None, :]
         met_w = torch.where(batch.edge_mask,
                             met[g[s.long()], p[s.long()], p[r.long()]], 0.0)

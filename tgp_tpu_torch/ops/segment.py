@@ -4,9 +4,11 @@ Same contracts as the JAX functions: a fixed ``num_segments``, optional
 element masks, ids outside ``[0, num_segments)`` dropped, and the same
 fills for empty segments.  None of them syncs with the device.
 
-:func:`segment_sum` adds by ``index_add_`` (float atomics on the card, so
-the bits of a sum may differ run to run); :func:`segment_sum_ordered` is
-its function with every segment summed in a fixed order, by K4.
+Float sums add in a fixed order, so a sum gives the same bits every run:
+:func:`segment_sum` on f32 and bf16 data sums each segment by K4 after a
+stable sort of its ids, and :func:`gather_rows` (a row gather) sums its
+gradient the same way.  Integer sums add by ``index_add_``: integers add
+exactly in any order.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 __all__ = [
     "segment_sum",
-    "segment_sum_ordered",
+    "gather_rows",
     "segment_mean",
     "segment_max",
     "segment_min",
@@ -31,6 +33,9 @@ __all__ = [
 
 Tensor = torch.Tensor
 
+#: the dtypes K4 sums (in a fixed order); other dtypes keep ``index_add_``
+_ORDERED_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def _bcast(mask: Tensor, like: Tensor) -> Tensor:
     return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
@@ -42,40 +47,12 @@ def _in_range(ids: Tensor, num_segments: int):
     return torch.where(ok, ids, 0), ok
 
 
-def segment_sum(data: Tensor, segment_ids: Tensor, num_segments: int,
-                mask=None) -> Tensor:
-    """Masked scatter-add: ``out[s] = Σ_{i: seg[i]==s, mask[i]} data[i]``."""
-    ids, ok = _in_range(segment_ids, num_segments)
-    keep = ok if mask is None else ok & mask
-    data = torch.where(_bcast(keep, data), data, 0)
-    out = torch.zeros((num_segments,) + data.shape[1:], dtype=data.dtype,
-                      device=data.device)
-    return out.index_add_(0, ids, data)
-
-
-def segment_sum_ordered(data: Tensor, segment_ids: Tensor,
-                        num_segments: int, mask=None, *,
-                        ids_sorted: bool = False) -> Tensor:
-    """:func:`segment_sum` with each segment's elements added in a fixed
-    order (the same bits every run): a stable sort of the (clipped) ids
-    gives the segments' runs, per-segment offsets come from
-    ``searchsorted`` on the device (no host sync), and K4's
-    ``gather_segment_sum`` sums each run reading the rows through the
-    sort order, skipping masked and out-of-range ones (a CUDA kernel on
-    the card, its plain version on the CPU).  ``ids_sorted`` says the ids
-    already ascend, so no sort is made.  Its gradient is a gather.  K4
-    takes f32 and bf16 data; other dtypes (integers add exactly in any
-    order) and ``num_segments = 0`` keep :func:`segment_sum`."""
-    if (data.dtype not in (torch.float32, torch.bfloat16)
-            or num_segments == 0):
-        return segment_sum(data, segment_ids, num_segments, mask=mask)
-    from tgp_tpu_torch.ops.kernels.segment_spmm import gather_segment_sum
-
-    ids = segment_ids.to(torch.int64)
-    keep = (ids >= 0) & (ids < num_segments)
-    if mask is not None:
-        keep = keep & mask
-    cids = ids.clamp(0, num_segments - 1).to(torch.int32)
+def _sorted_layout(ids: Tensor, num_segments: int, ids_sorted: bool):
+    """``(perm, row_ptr)`` of ids clipped to ``[0, num_segments)``: the
+    int32 order of a stable sort (the identity when ``ids_sorted``) and
+    the ``[num_segments + 1]`` int32 offsets of each segment's run, from
+    ``searchsorted`` on the device."""
+    cids = ids.to(torch.int64).clamp(0, num_segments - 1).to(torch.int32)
     if ids_sorted:
         rids = cids
         perm = torch.arange(cids.shape[0], dtype=torch.int32,
@@ -85,10 +62,82 @@ def segment_sum_ordered(data: Tensor, segment_ids: Tensor,
         perm = perm.to(torch.int32)
     row_ptr = torch.searchsorted(
         rids, torch.arange(num_segments + 1, dtype=torch.int32,
-                           device=data.device), out_int32=True)
-    out = gather_segment_sum(data.reshape(data.shape[0], -1).contiguous(),
-                             perm, keep, cids, row_ptr, num_segments)
-    return out.reshape((num_segments,) + data.shape[1:])
+                           device=ids.device), out_int32=True)
+    return perm, row_ptr
+
+
+def _ordered_sum(rows: Tensor, ids: Tensor, keep: Tensor, num_segments: int,
+                 perm: Tensor, row_ptr: Tensor) -> Tensor:
+    """K4's ``gather_segment_sum`` of ``rows [n, ...]`` through ``perm``
+    and ``row_ptr``, rows whose ``keep`` is False skipped."""
+    from tgp_tpu_torch.ops.kernels.segment_spmm import gather_segment_sum
+
+    flat = rows.reshape(rows.shape[0], -1).contiguous()
+    cids = ids.to(torch.int64).clamp(0, num_segments - 1).to(torch.int32)
+    out = gather_segment_sum(flat, perm, keep, cids, row_ptr, num_segments)
+    return out.reshape((num_segments,) + rows.shape[1:])
+
+
+def segment_sum(data: Tensor, segment_ids: Tensor, num_segments: int,
+                mask=None, *, ids_sorted: bool = False) -> Tensor:
+    """Masked segment sum: ``out[s] = Σ_{i: seg[i]==s, mask[i]} data[i]``.
+
+    f32 and bf16 data add each segment's elements in a fixed order (the
+    same bits every run): a stable sort of the (clipped) ids gives the
+    segments' runs, per-segment offsets come from ``searchsorted`` on
+    the device (no host sync), and K4's ``gather_segment_sum`` sums each
+    run reading the rows through the sort order, skipping masked and
+    out-of-range ones (a CUDA kernel on the card, its plain version on
+    the CPU).  ``ids_sorted`` says the ids already ascend, so no sort is
+    made.  Its gradient is a gather.  Other dtypes (integers add exactly
+    in any order) and ``num_segments = 0`` add by ``index_add_``."""
+    ids, ok = _in_range(segment_ids, num_segments)
+    keep = ok if mask is None else ok & mask
+    if (data.dtype in _ORDERED_DTYPES and num_segments > 0
+            and data.shape[0] > 0):
+        perm, row_ptr = _sorted_layout(segment_ids, num_segments, ids_sorted)
+        return _ordered_sum(data, segment_ids, keep, num_segments, perm,
+                            row_ptr)
+    data = torch.where(_bcast(keep, data), data, 0)
+    out = torch.zeros((num_segments,) + data.shape[1:], dtype=data.dtype,
+                      device=data.device)
+    return out.index_add_(0, ids, data)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x.index_select(0, idx)`` whose gradient sums the cotangent rows
+    of each index in a fixed order (K4 over a stable sort of ``idx``),
+    where ``index_select``'s is one ``index_add_`` (float atomics on the
+    card)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        n = ctx.num_rows
+        perm, row_ptr = _sorted_layout(idx, n, False)
+        keep = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
+        return _ordered_sum(g, idx, keep, n, perm, row_ptr), None
+
+
+def gather_rows(x: Tensor, idx: Tensor, num_rows: int) -> Tensor:
+    """Rows ``x[idx]`` (``x [num_rows, ...]``, ids in ``[0, num_rows)``)
+    by ``index_select``; its gradient adds the rows of each id in a fixed
+    order (the same bits every run).  A tensor that takes no gradient (or
+    an integer one) is gathered as it is."""
+    if x.shape[0] != num_rows:
+        raise ValueError(f"gather_rows: x has {x.shape[0]} rows, "
+                         f"num_rows is {num_rows}")
+    idx = idx.long()
+    if not (torch.is_grad_enabled() and x.requires_grad) \
+            or x.dtype not in _ORDERED_DTYPES or num_rows == 0:
+        return x.index_select(0, idx)
+    return _GatherRows.apply(x, idx)
 
 
 def segment_count(segment_ids: Tensor, num_segments: int,
@@ -140,20 +189,17 @@ def segment_min(data: Tensor, segment_ids: Tensor, num_segments: int,
 
 
 def segment_softmax(scores: Tensor, segment_ids: Tensor, num_segments: int,
-                    mask=None, *, ordered: bool = False,
-                    ids_sorted: bool = False) -> Tensor:
+                    mask=None, *, ids_sorted: bool = False) -> Tensor:
     """Per-segment softmax; masked entries get 0 and do not enter the
-    normalizer.  ``ordered`` sums the normalizer in a fixed order
-    (:func:`segment_sum_ordered`, ``ids_sorted`` passed on)."""
+    normalizer (summed by :func:`segment_sum`, ``ids_sorted`` passed
+    on)."""
     m = segment_max(scores, segment_ids, num_segments, mask=mask)
     m = torch.where(torch.isfinite(m), m, 0.0)
     ids = segment_ids.long().clamp(0, num_segments - 1)
     e = torch.exp(scores - m[ids])
     if mask is not None:
         e = torch.where(_bcast(mask, e), e, 0.0)
-    denom = (segment_sum_ordered(e, segment_ids, num_segments,
-                                 ids_sorted=ids_sorted) if ordered
-             else segment_sum(e, segment_ids, num_segments))
+    denom = segment_sum(e, segment_ids, num_segments, ids_sorted=ids_sorted)
     denom = torch.clamp(denom, min=1e-16)
     return e / denom[ids]
 

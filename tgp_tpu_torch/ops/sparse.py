@@ -10,8 +10,8 @@ import torch
 from tgp_tpu_torch.ops.segment import (
     segment_max,
     segment_normalize,
+    gather_rows,
     segment_sum,
-    segment_sum_ordered,
 )
 
 __all__ = [
@@ -55,7 +55,7 @@ def coalesce(senders, receivers, edge_weight, edge_mask, num_nodes: int,
     budget: sort by ``(receiver, sender)`` (invalid edges last), reduce
     each run of equal keys into its head, mask the rest.  Each run's sum
     (and ``mean``'s count) adds in run order by
-    :func:`~tgp_tpu_torch.ops.segment.segment_sum_ordered` (K4 on the
+    :func:`~tgp_tpu_torch.ops.segment.segment_sum` (K4 on the
     card), so a merge gives the same bits every run.
 
     The output is JAX's merged edge set in another order: the masked
@@ -74,9 +74,9 @@ def coalesce(senders, receivers, edge_weight, edge_mask, num_nodes: int,
     is_head[1:] = (ss[1:] != ss[:-1]) | (rs[1:] != rs[:-1])
     run_id = torch.cumsum(is_head.to(torch.int64), 0) - 1
     if reduce in ("sum", "mean"):
-        run_val = segment_sum_ordered(sw, run_id, E, ids_sorted=True)
+        run_val = segment_sum(sw, run_id, E, ids_sorted=True)
         if reduce == "mean":
-            run_val = run_val / torch.clamp(segment_sum_ordered(
+            run_val = run_val / torch.clamp(segment_sum(
                 torch.ones_like(sw), run_id, E, ids_sorted=True), min=1.0)
     elif reduce == "max":
         run_val = segment_max(sw, run_id, E)
@@ -171,18 +171,20 @@ def use_dense_vote(num_graphs: int, max_nodes: int) -> bool:
 
 def spmm(senders, receivers, edge_weight, x, num_nodes: int, *,
          indices_are_sorted: bool = False, method: str = "auto"):
-    """``(A X)[r] = Σ_{e: recv[e]=r} w_e · x[send_e]``.
+    """``(A X)[r] = Σ_{e: recv[e]=r} w_e · x[send_e]``, every sum in a
+    fixed order.
 
     ``method``: ``"auto"`` applies :func:`use_kernel_spmm`; ``"torch"``
-    (gather + ``index_add_``) and ``"kernel"`` (the sorted segment-sum
-    kernel; receiver-sorted edges required) force a path."""
+    (gather + :func:`~tgp_tpu_torch.ops.segment.segment_sum`, which sorts
+    the receivers unless ``indices_are_sorted``) and ``"kernel"`` (the
+    sorted segment-sum kernel; receiver-sorted edges required) force a
+    path.  The gather is :func:`~tgp_tpu_torch.ops.segment.gather_rows`,
+    whose gradient sorts the senders."""
     if method == "auto":
         method = ("kernel" if use_kernel_spmm(
             senders.shape[0], indices_are_sorted, x.device) else "torch")
     edge_weight = check_and_filter_edge_weights(edge_weight)
-    # index_select: its gradient is one index_add_, where x[idx]'s is a
-    # sort and a serial pass over each run of repeated ids
-    msgs = x.index_select(0, senders.long()) * edge_weight[:, None]
+    msgs = gather_rows(x, senders, x.shape[0]) * edge_weight[:, None]
     if method == "kernel":
         if not indices_are_sorted:
             raise ValueError(
@@ -193,7 +195,8 @@ def spmm(senders, receivers, edge_weight, x, num_nodes: int, *,
         return segment_sum_sorted(msgs.contiguous(), receivers, num_nodes)
     if method != "torch":
         raise ValueError(f"unknown spmm method {method!r}")
-    return segment_sum(msgs, receivers, num_nodes)
+    return segment_sum(msgs, receivers, num_nodes,
+                       ids_sorted=indices_are_sorted)
 
 
 def spmm_batch(batch, x=None, *, abs_weights: bool = False):
@@ -301,7 +304,8 @@ def rank3_diag(x: Tensor) -> Tensor:
 
 def sddmm(senders, receivers, a: Tensor, b: Tensor) -> Tensor:
     """Sampled dense-dense product: per edge ``⟨a[s_e], b[r_e]⟩`` (the
-    edge-wise ``⟨S_i, S_j⟩`` of the sparse loss twins; a plain gather,
-    not the banded K6 kernel)."""
-    return (a.index_select(0, senders.long())
-            * b.index_select(0, receivers.long())).sum(-1)
+    edge-wise ``⟨S_i, S_j⟩`` of the sparse loss twins; two
+    :func:`~tgp_tpu_torch.ops.segment.gather_rows`, not the banded K6
+    kernel)."""
+    return (gather_rows(a, senders, a.shape[0])
+            * gather_rows(b, receivers, b.shape[0])).sum(-1)

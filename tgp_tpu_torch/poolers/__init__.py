@@ -3,7 +3,8 @@
 ``"sag"``, ``"asap"`` and ``"pan"``, the clustering poolers ``"ec"``,
 ``"graclus"``, ``"kmis"`` and ``"nopool"``, LaPool (``"lap"``) and the
 dense soft-cluster poolers ``"mincut"``, ``"diff"``, ``"dmon"``,
-``"hosc"``, ``"jb"`` and ``"acc"`` are ported so far.
+``"hosc"``, ``"jb"``, ``"acc"`` and ``"bnpool"``, and MaxCut
+(``"maxcut"``) are ported so far.
 
 ``get_pooler(alias, **kwargs)`` drops kwargs the pooler's constructor
 does not take, translates the reference spellings ``lift=`` and
@@ -20,6 +21,7 @@ from typing import Dict, Type
 
 from tgp_tpu_torch.poolers.asap import ASAPooling
 from tgp_tpu_torch.poolers.asym_cheeger_cut import AsymCheegerCutPooling
+from tgp_tpu_torch.poolers.bnpool import BNPool
 from tgp_tpu_torch.poolers.dense_base import DenseClusterPooling
 from tgp_tpu_torch.poolers.diffpool import DiffPool
 from tgp_tpu_torch.poolers.dmon import DMoNPooling
@@ -29,6 +31,7 @@ from tgp_tpu_torch.poolers.hosc import HOSCPooling
 from tgp_tpu_torch.poolers.just_balance import JustBalancePooling
 from tgp_tpu_torch.poolers.kmis import KMISPooling
 from tgp_tpu_torch.poolers.lapool import LaPooling
+from tgp_tpu_torch.poolers.maxcut import MaxCutPooling
 from tgp_tpu_torch.poolers.mincut import MinCutPooling
 from tgp_tpu_torch.poolers.nopool import NoPool
 from tgp_tpu_torch.poolers.pan import PANPooling
@@ -42,7 +45,7 @@ __all__ = ["get_pooler", "pooler_map", "pooler_signature",
            "EdgeContractionPooling", "GraclusPooling", "KMISPooling",
            "NoPool", "LaPooling", "DenseClusterPooling", "MinCutPooling",
            "DiffPool", "DMoNPooling", "HOSCPooling", "JustBalancePooling",
-           "AsymCheegerCutPooling"]
+           "AsymCheegerCutPooling", "BNPool", "MaxCutPooling"]
 
 _REGISTRY: Dict[str, Type[SRCPooling]] = {}
 
@@ -70,7 +73,8 @@ for _alias, _cls in (
         ("graclus", GraclusPooling), ("kmis", KMISPooling),
         ("nopool", NoPool), ("lap", LaPooling), ("mincut", MinCutPooling),
         ("diff", DiffPool), ("dmon", DMoNPooling), ("hosc", HOSCPooling),
-        ("jb", JustBalancePooling), ("acc", AsymCheegerCutPooling)):
+        ("jb", JustBalancePooling), ("acc", AsymCheegerCutPooling),
+        ("bnpool", BNPool), ("maxcut", MaxCutPooling)):
     register_pooler(_alias, _cls)
 
 

@@ -20,7 +20,8 @@ from tgp_tpu_torch.connect.base import ConnectConfig, sparse_connect
 from tgp_tpu_torch.graph import GraphBatch
 from tgp_tpu_torch.mp.gcn import GCNConv, GraphConv
 from tgp_tpu_torch.mp.leconv import LEConv
-from tgp_tpu_torch.ops.segment import segment_max, segment_softmax, segment_sum
+from tgp_tpu_torch.ops.segment import (gather_rows, segment_max,
+                                       segment_softmax, segment_sum)
 from tgp_tpu_torch.ops.sparse import add_remaining_self_loops
 from tgp_tpu_torch.reduce.base import reduce_sparse
 from tgp_tpu_torch.select.base import SelectOutput
@@ -108,22 +109,22 @@ class ASAPooling(SRCPooling):
         x_in = batch.x
         x_pool = (x_in if self.intra_gnn is None
                   else self.gnn_intra_cluster(batch))
-        # rows by index_select: its gradient is one index_add_ (x[idx]'s
-        # sorts and walks each run of repeated ids serially)
-        x_pool_s = x_pool.index_select(0, sl)
+        # rows by gather_rows: its gradient sums each node's rows in a
+        # fixed order
+        x_pool_s = gather_rows(x_pool, sl, N)
 
         # ego-network attention; an empty ego network reads 0
         x_q = segment_max(x_pool_s, r, N, mask=em)
         x_q = torch.where(torch.isfinite(x_q), x_q, 0.0)
         x_q = apply_linear(self.lin, x_q)
         score_e = apply_linear(self.att, torch.cat(
-            [x_q.index_select(0, rl), x_pool_s], -1))[:, 0]
+            [gather_rows(x_q, rl, N), x_pool_s], -1))[:, 0]
         score_e = F.leaky_relu(score_e, self.negative_slope)
         score_e = segment_softmax(score_e, r, N, mask=em)
         if self.dropout > 0 and self.training:
             score_e = self._drop(score_e)
 
-        v = x_in.index_select(0, sl) * score_e[:, None]
+        v = gather_rows(x_in, sl, N) * score_e[:, None]
         x_clustered = segment_sum(v, r, N, mask=em)
 
         fitness = self.select_scorer(x_clustered, s, r,

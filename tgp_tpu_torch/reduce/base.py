@@ -15,8 +15,7 @@ from typing import Optional
 
 import torch
 
-from tgp_tpu_torch.ops.segment import (dense_rows, segment_sum,
-                                       segment_sum_ordered)
+from tgp_tpu_torch.ops.segment import dense_rows, segment_sum
 from tgp_tpu_torch.select.base import SelectOutput
 
 __all__ = ["reduce_sparse", "reduce_dense_batched", "reduce_dense_unbatched",
@@ -28,12 +27,18 @@ Tensor = torch.Tensor
 def reduce_sparse(x: Tensor, so: SelectOutput) -> Tensor:
     """``x_pool[c] = Σ_{i: cluster(i)=c} w_i · x_i`` (``[C, F]``).  A total
     assignment's clusters may hold many nodes: their sums add in a fixed
-    order (:func:`~tgp_tpu_torch.ops.segment.segment_sum_ordered`); a
-    partial selection's supernodes hold one node each."""
+    order (:func:`~tgp_tpu_torch.ops.segment.segment_sum`); a partial
+    selection's supernodes hold one node each, so its rows are an indexed
+    write (unselected nodes write to a spare row past the end)."""
     src = x * so.weight[:, None]
-    total = segment_sum if so.partial else segment_sum_ordered
-    return total(src, so.cluster_index, so.num_clusters,
-                 mask=so.node_sel_mask)
+    if not so.partial:
+        return segment_sum(src, so.cluster_index, so.num_clusters,
+                           mask=so.node_sel_mask)
+    C = so.num_clusters
+    ci = so.cluster_index.long()
+    row = torch.where(so.node_sel_mask & (ci >= 0) & (ci < C), ci, C)
+    out = src.new_zeros((C + 1,) + src.shape[1:]).index_put((row,), src)
+    return out[:C]
 
 
 def reduce_dense_batched(x: Tensor, s: Tensor) -> Tensor:

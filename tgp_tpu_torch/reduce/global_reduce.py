@@ -3,7 +3,7 @@ sparse ``[N,F]`` + ``node_graph`` or dense ``[B,N,F]`` + mask → ``[B,F]``.
 
 The sparse ``sum`` and ``mean`` add in a fixed order, as
 ``jax.ops.segment_sum`` does, by :func:`~tgp_tpu_torch.ops.segment.
-segment_sum_ordered`: a stable sort of the (clipped) graph ids gives the
+segment_sum`: a stable sort of the (clipped) graph ids gives the
 rows' graph order, and K4's ``gather_segment_sum`` sums each graph's run
 of rows from per-graph offsets, reading the rows through that order and
 skipping masked ones (a CUDA kernel on the card, its plain version on the
@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from tgp_tpu_torch.ops.segment import (segment_count, segment_max,
-                                       segment_min, segment_sum_ordered)
+                                       segment_min, segment_sum)
 
 __all__ = ["global_reduce"]
 
@@ -54,9 +54,9 @@ def global_reduce(x: Tensor, *, node_graph: Optional[Tensor] = None,
     if node_mask is None:
         node_mask = mask
     if op == "sum":
-        return segment_sum_ordered(x, node_graph, num_graphs, node_mask)
+        return segment_sum(x, node_graph, num_graphs, node_mask)
     if op == "mean":
-        s = segment_sum_ordered(x, node_graph, num_graphs, node_mask)
+        s = segment_sum(x, node_graph, num_graphs, node_mask)
         c = segment_count(node_graph, num_graphs, mask=node_mask).to(s.dtype)
         c = torch.clamp(c, min=1e-12)
         return s / c.reshape(c.shape + (1,) * (s.dim() - 1))

@@ -1,6 +1,7 @@
 """Select operators."""
 from tgp_tpu_torch.select.base import (SelectOutput, cluster_to_select_output,
                                        compact_select_output)
+from tgp_tpu_torch.select.dp import DPSelect, stick_breaking
 from tgp_tpu_torch.select.edge_contraction import (EdgeContractionSelect,
                                                    matching,
                                                    maximal_matching,
@@ -10,6 +11,7 @@ from tgp_tpu_torch.select.kmis import (KMISSelect, maximal_independent_set,
                                        maximal_independent_set_dense,
                                        mis_cluster, mis_cluster_dense)
 from tgp_tpu_torch.select.lapool import lapool_select, shortest_path_weights
+from tgp_tpu_torch.select.maxcut import MaxCutScoreNet, MaxCutSelect
 from tgp_tpu_torch.select.topk import (TopkSelect, dense_topk_indices,
                                        dense_topk_select_output, topk_budget,
                                        topk_select_from_scores)
@@ -31,4 +33,5 @@ __all__ = ["SelectOutput", "cluster_to_select_output",
            "KMISSelect", "maximal_independent_set",
            "maximal_independent_set_dense", "mis_cluster",
            "mis_cluster_dense", "lapool_select", "shortest_path_weights",
+           "DPSelect", "stick_breaking", "MaxCutScoreNet", "MaxCutSelect",
            "degree_scorer"]

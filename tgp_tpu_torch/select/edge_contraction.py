@@ -21,7 +21,7 @@ from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import GraphBatch
-from tgp_tpu_torch.ops.segment import (node_cells, segment_min,
+from tgp_tpu_torch.ops.segment import (gather_rows, node_cells, segment_min,
                                        segment_softmax, segment_sum)
 from tgp_tpu_torch.ops.sparse import use_dense_vote
 from tgp_tpu_torch.select.base import SelectOutput
@@ -221,8 +221,9 @@ class EdgeContractionSelect(nn.Module):
         ct = torch.promote_types(x.dtype, self.lin.weight.dtype)
         w = self.lin.weight.to(ct).view(2, self.in_channels).t()
         node = x.to(ct) @ w  # [N, 2]: each node's sender and receiver terms
-        e = (node[:, 0].index_select(0, batch.senders.long())
-             + node[:, 1].index_select(0, batch.receivers.long())
+        N = batch.num_nodes
+        e = (gather_rows(node[:, 0], batch.senders, N)
+             + gather_rows(node[:, 1], batch.receivers, N)
              + self.lin.bias.to(ct))
         if self.dropout > 0 and self.training:
             keep_p = 1.0 - self.dropout
@@ -232,7 +233,7 @@ class EdgeContractionSelect(nn.Module):
         if self.edge_score_method == "softmax":
             # each receiver's normalizer summed in a fixed order
             e = segment_softmax(e, batch.receivers, batch.num_nodes,
-                                mask=batch.edge_mask, ordered=True,
+                                mask=batch.edge_mask,
                                 ids_sorted=batch.edges_sorted)
         elif self.edge_score_method == "tanh":
             e = torch.tanh(e)

@@ -20,8 +20,8 @@ from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import GraphBatch
-from tgp_tpu_torch.ops.segment import (node_cells, segment_min, segment_sum,
-                                       segment_sum_ordered)
+from tgp_tpu_torch.ops.segment import (gather_rows, node_cells, segment_min,
+                                       segment_sum)
 from tgp_tpu_torch.ops.sparse import coalesce, use_dense_vote, weighted_degree
 from tgp_tpu_torch.select.base import SelectOutput
 from tgp_tpu_torch.select.edge_contraction import (dense_cells, rank_by,
@@ -242,9 +242,10 @@ class KMISSelect(nn.Module):
                   else score)
         s = batch.senders.long()
         for _ in range(self.order_k):
-            src = torch.where(batch.edge_mask, k_sums.index_select(0, s), 0.0)
+            src = torch.where(batch.edge_mask,
+                              gather_rows(k_sums, s, batch.num_nodes), 0.0)
             # each node's sum in a fixed order
-            k_sums = k_sums + segment_sum_ordered(
+            k_sums = k_sums + segment_sum(
                 src, batch.receivers, batch.num_nodes,
                 ids_sorted=batch.edges_sorted)
         return score / torch.clamp(k_sums, min=1e-12)
