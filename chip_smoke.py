@@ -122,7 +122,22 @@ each of which raises on failure:
    steps (CE + the maxcut loss, K1 26 times a step); ``[maxcut_dense]``
    runs its dense and sparse engines on the ASAP cell's batch, scores
    within 1e-4 of each other and of the CPU's, the same votes;
-13. the locality path on the union of the dense graphs (16,384 nodes):
+13. ``reduce/aggr.py`` on the dense cell's 64 graphs collated sparse:
+   ``[aggr_zoo]`` runs each of ``get_aggr``'s 29 aliases through
+   ``AggrReduce`` as a readout over the 64 graphs and as a sparse reduce
+   under Graclus's assignment, a forward and backward each (K4 counted;
+   ``mlp`` and ``patch_transformer`` with ``max_len`` 256), a repeat
+   required bit-equal, output and gradients held to the CPU;
+   ``[train_aggr_<readout>]`` trains the aggregation example twin's
+   ``Net`` (GCN → top-k → GCN → ``AggrReduce`` → head, hidden 128, f32)
+   5 steps with the readouts ``sum``, ``mean``, ``lstm`` and
+   ``set2set`` (K4 7, 7, 6 and 18 times a step; step one on the card's
+   replayed top-k selection); ``[serving_aggr_<readout>]`` serves that
+   ``Net`` with ``set2set`` and ``lstm`` at the serving width (K1 3
+   times a request, K4 6 and 0 times), logits held to the CPU on the
+   card's replayed selection, a repeated request bit-equal, the LSTM's
+   recurrent steps reported;
+14. the locality path on the union of the dense graphs (16,384 nodes):
    ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
    engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
    ``sddmm_banded`` (K6) on the same plan, each held against the plain
@@ -280,6 +295,43 @@ MAXCUT_DENSE_TIMED = 5
 FAMILY_LOSS_REL_TOL, FAMILY_TWIN_TOL = 1e-4, 5e-4
 # K3 above the grid's z limit of 65,535 products: split into launches
 K3_SPLIT_BATCH = 70_000
+# reduce/aggr.py: every alias of get_aggr on the dense cell's 64 graphs
+# collated sparse (a readout over the 64 graphs, and a sparse reduce under
+# Graclus's assignment); mlp and patch_transformer size their parameters
+# from max_len: the cell's graph size, so nothing is truncated
+AGGR_MAX_LEN = DENSE_NODES
+AGGR_SIZED = ("mlp", "patch_transformer")
+# each output against the port's CPU run, within this of its largest
+# |value| (the recurrent ones: cuDNN against the CPU's cells), and each
+# gradient leaf within GRAD_REL_TOL of its largest |value|
+AGGR_TOL, AGGR_RNN_TOL = 1e-4, 1e-3
+AGGR_RNN = ("lstm", "gru", "set2set")
+# a bias that shifts every logit of a softmax equally (the attentional
+# gate's; each attention block's key bias) takes a zero gradient: rounding
+# noise on both sides, held under its weight's gradient scale
+AGGR_ZERO_GRADS = {"attentional": ("aggr.dense_0.bias",)}
+
+
+def aggr_zero_grad(alias, name):
+    """Whether ``name``'s gradient is 0 in exact arithmetic."""
+    return name in AGGR_ZERO_GRADS.get(alias, ()) or name.endswith(
+        ".key.bias")
+AGGR_TIMED = 3  # forward-and-backward runs timed per alias and use
+# [train_aggr]: the aggregation example twin's Net (GCN → top-k → GCN →
+# AggrReduce → head) at hidden 128 with the reference example's readouts;
+# K4 a step: the generic GCNs' degree and aggregation forward, their
+# message gathers' gradients backward, and the readout's sums (set2set:
+# its softmax normalizer and weighted sum, 3 steps, forward and its
+# gathers' gradients)
+TRAIN_AGGRS = ("sum", "mean", "lstm", "set2set")
+SMALL_LAUNCHES.update({f"aggr_{a}": {"sorted_segment_sum": n} for a, n in
+                       (("sum", 7), ("mean", 7), ("lstm", 6),
+                        ("set2set", 18))})
+# [serving_aggr]: the same Net served at the serving width (f32): K1 3
+# times a request (the pre-pool GCN, the masked post-pool GCN's degree and
+# product); K4: set2set's normalizer and weighted sum, 3 steps; lstm none
+SERVING_AGGRS = ("set2set", "lstm")
+K4_PER_AGGR_REQUEST = {"set2set": 6, "lstm": 0}
 
 
 def request_graph(seed: int):
@@ -857,6 +909,64 @@ def phase_kernels_gather_grad(batch, d_graphs, d_labels):
     return rows
 
 
+def phase_kernels_aggr(batch, d_graphs, d_labels):
+    """K4 at the two shapes ``reduce/aggr.py`` adds: the served ``set2set``
+    readout's softmax normalizer (the first request's pooled graph as the
+    aggregation Net pools it: 65,536 rows of 1 f32 into one segment, its
+    unselected half skipped, 3 times a request) and the sparse reduce's
+    sums under Graclus's assignment of the dense cell's batch (16,384 rows
+    of 128 f32 into its 16,384 cluster slots).  Each held to the plain
+    version at REL_TOL and run twice for the same bits; library: the
+    ``index_add_`` a scatter-add sum would be; ``sort_ms``: the stable
+    sort and offsets before the kernel."""
+    import torch.nn.functional as F_
+
+    from examples.classification_aggr_reduce_torch import Net
+    from tgp_tpu_torch import get_pooler
+    from tgp_tpu_torch.data import GraphLoader
+    from tgp_tpu_torch.ops.kernels import segment_spmm as K
+    from tgp_tpu_torch.ops.segment import _sorted_layout
+
+    net = Net(FEATURES, "set2set", num_classes=CLASSES, hidden=HIDDEN,
+              device="cuda", generator=torch.Generator().manual_seed(0))
+    small, _ = next(iter(GraphLoader(d_graphs, d_labels,
+                                     batch_size=len(d_graphs), device="cuda")))
+    with torch.inference_mode():
+        pooled = net.pooler(batch.with_features(
+            F_.relu(net.conv(batch)))).graph
+        so = get_pooler("graclus", device="cuda")(small).so
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = (("set2set normalizer", pooled.node_graph, pooled.node_mask,
+              pooled.num_graphs, 1),
+             ("graclus reduce", so.cluster_index, so.node_sel_mask,
+              so.num_clusters, FEATURES))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for what, ids, keep, B, F in cases:
+        ids = ids.long()
+        E = ids.shape[0]
+        x = torch.randn(E, F, generator=gen, device="cuda")
+        cids = ids.to(torch.int32)
+        perm, rp = _sorted_layout(ids, B, False)
+        name = f"K4 aggr {what} F={F} float32 segments={B}"
+        rows[name] = check_mode(
+            name, lambda: K.gather_segment_sum(x, perm, keep, cids, rp, B),
+            lambda: K.gather_segment_sum_plain(x, perm, keep, rp, B),
+            lambda: torch.zeros(B, F, device="cuda").index_add_(
+                0, ids, torch.where(keep[:, None], x, 0.0)),
+            rel_tol=REL_TOL,
+            bound_bytes=4 * E * F + 4 * E + E + 4 * (B + 1) + 4 * B * F,
+            flops=E * F, peak=FP32_FLOPS_PER_S,
+            scale=K.gather_segment_sum_plain(x.abs(), perm, keep, rp, B),
+            flush=flush, note="index_add_ of the masked rows", twice=True,
+            extra={"rows": E, "kept": int(keep.sum()),
+                   "route": K.segment_route(B, E, F),
+                   "sort_ms": median_ms(
+                       lambda: _sorted_layout(ids, B, False), flush)})
+    del flush
+    return rows
+
+
 def phase_kernels_k3(adj):
     """K3 at the dense training slice's shapes, on its normalized bf16
     adjacency ``adj [64, 256, 256]`` (its top-left 128 × 128 blocks for
@@ -1032,32 +1142,39 @@ def pinned_ranks(record=None, replay=None):
 
 
 @contextlib.contextmanager
-def pinned_selection(record=None, replay=None):
+def pinned_selection(record=None, replay=None, topk=False):
     """Record MaxCut's top-k selections (which nodes are kept, appended to
     ``record`` on the CPU), or hand out ``replay``'s in their place, in
     order, their weights the scores of this run: the CPU reference then
     votes from the card's selection.  The scores are tanh'd through bf16
     features, so an independent CPU top-k may break exact ties the other
-    way."""
-    from tgp_tpu_torch.select import maxcut
+    way.  ``topk``: the top-k pooler's selections too (the aggregation
+    Net's: an f32 score near a tie may rank the other way on the CPU)."""
+    from tgp_tpu_torch.select import maxcut, topk as topk_mod
 
-    real = maxcut.topk_select_from_scores
+    mods = (maxcut, topk_mod) if topk else (maxcut,)
+    reals = {m: m.topk_select_from_scores for m in mods}
     queue = list(replay or [])
 
-    def select(score, batch, *args, **kw):
-        so = real(score, batch, *args, **kw)
-        if replay is None:
-            record.append((so.cluster_index.cpu(), so.node_sel_mask.cpu()))
-            return so
-        ci, keep = (t.to(score.device) for t in queue.pop(0))
-        return so.replace(cluster_index=ci, node_sel_mask=keep,
-                          weight=torch.where(keep, score, 0.0))
+    def pinned(real):
+        def select(score, batch, *args, **kw):
+            so = real(score, batch, *args, **kw)
+            if replay is None:
+                record.append((so.cluster_index.cpu(),
+                               so.node_sel_mask.cpu()))
+                return so
+            ci, keep = (t.to(score.device) for t in queue.pop(0))
+            return so.replace(cluster_index=ci, node_sel_mask=keep,
+                              weight=torch.where(keep, score, 0.0))
+        return select
 
-    maxcut.topk_select_from_scores = select
+    for m, real in reals.items():
+        m.topk_select_from_scores = pinned(real)
     try:
         yield
     finally:
-        maxcut.topk_select_from_scores = real
+        for m, real in reals.items():
+            m.topk_select_from_scores = real
     if replay is not None and queue:
         raise AssertionError(f"{len(queue)} recorded selections left unused")
 
@@ -1668,8 +1785,15 @@ def phase_train_sparse(card, profile: bool, alias="topk"):
 def _small_model(which, device, seed=0):
     """The example twins' models at the dense cell's width: the
     classification example's ``PoolingClassifier`` with ASAP, or with
-    LaPool and its dense pooled graph's products in K3, or ``PANNet``;
+    LaPool and its dense pooled graph's products in K3, ``PANNet``, or
+    the aggregation example's ``Net`` with the readout ``aggr_<alias>``;
     ``logits(model, batch)`` reads each one's logits."""
+    if which.startswith("aggr_"):
+        from examples.classification_aggr_reduce_torch import Net
+
+        return Net(FEATURES, which[len("aggr_"):], num_classes=CLASSES,
+                   hidden=HIDDEN, device=device,
+                   generator=torch.Generator().manual_seed(seed))
     if which in ("asap", "lap"):
         from examples.classification_torch import build_model as build
 
@@ -1688,13 +1812,14 @@ def _logits(model, batch):
 
 
 def phase_train_small(card, graphs, labels, which, profile: bool):
-    """ASAP (``which="asap"``), PAN or LaPool (``"lap"``) trains
-    SMALL_STEPS Adam steps (f32) through the example twin's model on the
-    dense cell's 64 graphs, collated sparse by ``GraphLoader``; below
-    PALLAS_MIN_EDGES no K1 runs; the launches a step are
-    ``SMALL_LAUNCHES[which]`` (the readout's K4 once; LaPool's dense
-    pooled graph K3 three times, by route); step one held against the
-    CPU."""
+    """ASAP (``which="asap"``), PAN, LaPool (``"lap"``) or the
+    aggregation Net (``"aggr_<readout>"``) trains SMALL_STEPS Adam steps
+    (f32) through the example twin's model on the dense cell's 64 graphs,
+    collated sparse by ``GraphLoader``; below PALLAS_MIN_EDGES no K1 runs;
+    the launches a step are ``SMALL_LAUNCHES[which]`` (the readout's K4
+    once; LaPool's dense pooled graph K3 three times, by route); step one
+    held against the CPU (the aggregation Net's on the card's top-k
+    selection, replayed)."""
     from tgp_tpu_torch.data import GraphLoader
 
     loader = GraphLoader(graphs, labels, batch_size=len(graphs),
@@ -1725,10 +1850,12 @@ def phase_train_small(card, graphs, labels, which, profile: bool):
     # the main path, counted
     reset_counts()
     step_ms, losses = [], []
+    sels, topk = [], which.startswith("aggr_")
     for i in range(SMALL_STEPS):
         if i == 0:
             def first():
-                out = loss_and_grads(model, batch, y)
+                with pinned_selection(record=sels, topk=topk):
+                    out = loss_and_grads(model, batch, y)
                 opt.step()
                 return out
 
@@ -1753,7 +1880,8 @@ def phase_train_small(card, graphs, labels, which, profile: bool):
 
     cpu = _small_model(which, "cpu")
     cpu.load_state_dict(init)
-    cpu_loss, cpu_grads = loss_and_grads(cpu, batch.to("cpu"), y.cpu())
+    with pinned_selection(replay=sels, topk=topk):
+        cpu_loss, cpu_grads = loss_and_grads(cpu, batch.to("cpu"), y.cpu())
     cpu_loss = float(cpu_loss)
     loss_err, grad_err = _step_one_errors(f"{which}: step one", loss0,
                                           grads0, cpu_loss, cpu_grads)
@@ -2155,6 +2283,241 @@ def phase_maxcut_dense(card, graphs, labels):
     return result
 
 
+def _so_to(so, device):
+    """A ``SelectOutput`` with every tensor field moved to ``device``."""
+    import dataclasses
+
+    return so.replace(**{f.name: getattr(so, f.name).to(device)
+                         for f in dataclasses.fields(so)
+                         if isinstance(getattr(so, f.name), torch.Tensor)})
+
+
+def _aggr_reduce(alias, device):
+    """``AggrReduce(alias)`` at the cell's input width, its weights from a
+    fixed generator (``mlp``, ``patch_transformer``: ``max_len`` the
+    cell's graph size)."""
+    from tgp_tpu_torch.reduce.aggr import AggrReduce
+
+    kw = {"max_len": AGGR_MAX_LEN} if alias in AGGR_SIZED else {}
+    return AggrReduce(alias, in_channels=FEATURES, device=device,
+                      generator=torch.Generator().manual_seed(0), **kw)
+
+
+def _aggr_fwd_bwd(mod, x, args, cotangents):
+    """One forward and backward of ``mod(x, **args)`` against a fixed
+    cotangent (made once a shape and device, kept in ``cotangents``): the
+    output, the input's gradient and each parameter's."""
+    x = x.detach().clone().requires_grad_(True)
+    mod.zero_grad(set_to_none=True)
+    out = mod(x, **args)
+    key = (tuple(out.shape), out.device)
+    if key not in cotangents:
+        cotangents[key] = torch.randn(
+            out.shape, generator=torch.Generator().manual_seed(12)).to(
+                out.device)
+    (out * cotangents[key]).sum().backward()
+    return (out.detach(), x.grad,
+            {k: p.grad for k, p in mod.named_parameters()})
+
+
+def phase_aggr_zoo(card, graphs, labels):
+    """Every alias of ``get_aggr`` (29) through ``AggrReduce`` on the
+    dense cell's 64 graphs collated sparse by ``GraphLoader`` (16,384
+    rows of 128 f32): as a readout over the 64 graphs, and as a sparse
+    reduce under Graclus's assignment of that batch (its weights, its
+    16,384 cluster slots).  Each: one forward and backward counted (K4 a
+    call), a repeat required bit-equal (output, input and parameter
+    gradients), AGGR_TIMED more timed by CUDA events, and the same on the
+    CPU: the output within AGGR_TOL (AGGR_RNN_TOL for the recurrent ones)
+    of its largest |value|, each gradient within GRAD_REL_TOL of its
+    leaf's largest |value|."""
+    from tgp_tpu_torch import get_pooler
+    from tgp_tpu_torch.data import GraphLoader
+    from tgp_tpu_torch.reduce.aggr import aggr_aliases
+
+    batch, _ = next(iter(GraphLoader(graphs, labels,
+                                     batch_size=len(graphs), device="cuda")))
+    with torch.no_grad():
+        so = get_pooler("graclus", device="cuda")(batch).so
+    uses = {"readout": dict(so=None, node_graph=batch.node_graph,
+                            num_graphs=batch.num_graphs,
+                            node_mask=batch.node_mask),
+            "graclus": dict(so=so)}
+    x = batch.x.float()
+    rows, total, cotangents = {}, {}, {}
+    for alias in aggr_aliases():
+        for use, args in uses.items():
+            cpu_args = {k: (_so_to(v, "cpu") if k == "so" and v is not None
+                            else v.cpu() if isinstance(v, torch.Tensor)
+                            else v) for k, v in args.items()}
+            cpu_mod = _aggr_reduce(alias, "cpu")
+            mod = _aggr_reduce(alias, "cuda")
+            mod.load_state_dict(cpu_mod.state_dict())
+            # the main path, counted
+            reset_counts()
+            first = _aggr_fwd_bwd(mod, x, args, cotangents)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            again = _aggr_fwd_bwd(mod, x, args, cotangents)
+            torch.cuda.synchronize()
+            same = (torch.equal(first[0], again[0])
+                    and torch.equal(first[1], again[1])
+                    and all(torch.equal(g, again[2][k])
+                            for k, g in first[2].items()))
+            if not same:
+                raise AssertionError(f"{alias} {use}: a repeated forward and "
+                                     "backward differs")
+            ms = statistics.median(
+                _timed_step(lambda: _aggr_fwd_bwd(mod, x, args,
+                                                  cotangents))[0]
+                for _ in range(AGGR_TIMED))
+            ref = _aggr_fwd_bwd(cpu_mod, x.cpu(), cpu_args, cotangents)
+            tol = AGGR_RNN_TOL if alias in AGGR_RNN else AGGR_TOL
+            out_scale = max(float(ref[0].abs().max()), 1e-30)
+            out_err = float((first[0].cpu() - ref[0]).abs().max()) / out_scale
+            grads = {"x": (first[1], ref[1]),
+                     **{k: (g, ref[2][k]) for k, g in first[2].items()}}
+            grad_err = {k: float((a.cpu() - b).abs().max()) / max(float(
+                (grads[k.replace("bias", "weight")][1]
+                 if aggr_zero_grad(alias, k) else b).abs().max()), 1e-30)
+                        for k, (a, b) in grads.items()}
+            finite = all(bool(torch.isfinite(t).all()) for t in
+                         (first[0], first[1], *first[2].values()))
+            if (not finite or out_err > tol
+                    or max(grad_err.values()) > GRAD_REL_TOL):
+                raise AssertionError(
+                    f"{alias} {use} on the card vs the CPU: output error "
+                    f"{out_err} (tol {tol}), gradient errors {grad_err}")
+            rows[f"{alias} {use}"] = dict(
+                ms=ms, k4_launches=launches["sorted_segment_sum"],
+                out_shape=list(first[0].shape), out_rel_err=out_err,
+                out_tol=tol, grad_rel_err=max(grad_err.values()),
+                repeat_bit_equal=True)
+    if not total.get("sorted_segment_sum"):
+        raise AssertionError("the aggregations launched no K4")
+    result = dict(card=card, rows=int(batch.node_mask.sum()),
+                  edges=int(batch.edge_mask.sum()), graphs=len(graphs),
+                  clusters=so.num_clusters,
+                  occupied_clusters=int(so.out_mask().sum()),
+                  aliases=len(aggr_aliases()), launches=total,
+                  grad_rel_tol=GRAD_REL_TOL, per_alias=rows)
+    print(f"[aggr_zoo] {json.dumps(result)}", flush=True)
+    return result
+
+
+def phase_serving_aggr(card, graphs, batch, profile: bool, aggr: str):
+    """The aggregation example twin's ``Net`` (GCN → top-k → GCN →
+    ``AggrReduce(aggr)`` → head, hidden 128, f32) served through
+    ``Predictor(batch_size=1, sort_edges=True)`` on the full-size
+    requests: K1 3 times a request, K4 ``K4_PER_AGGR_REQUEST[aggr]``
+    times; the logits held to the CPU run on the card's replayed top-k
+    selection, a repeated request bit-equal, and the readout's recurrent
+    steps (the longest segment: the pooled graph's valid nodes)."""
+    import torch.nn.functional as F_
+
+    from examples.classification_aggr_reduce_torch import Net
+    from tgp_tpu_torch import Predictor, get_pooler
+
+    tag = f"serving_aggr_{aggr}"
+
+    def build(device):
+        """The served Net; on the CPU with the card's pooling mode and GCN
+        branches (masked pooling keeps the rows in node order, which an
+        order-sensitive readout reads; the CSR branches on K1's plain
+        version)."""
+        g = torch.Generator().manual_seed(0)
+        pooler = None if device == "cuda" else get_pooler(
+            "topk", in_channels=HIDDEN, ratio=0.5, pool_mode="masked",
+            device=device, generator=g)
+        net = Net(FEATURES, aggr, num_classes=CLASSES, hidden=HIDDEN,
+                  pooler=pooler, device=device, generator=g)
+        if device != "cuda":
+            net.conv.use_kernel = net.conv_1.use_kernel = True
+        return net.eval()
+
+    model = build("cuda")
+    predictor = Predictor(model, batch_size=1, sort_edges=True,
+                          device="cuda")
+    sels = []
+    with torch.inference_mode(), pinned_selection(record=sels, topk=True):
+        model(batch)  # warm-up: cuDNN and cuBLAS handles, the allocator
+    with torch.inference_mode():
+        pooled = model.pooler(batch.with_features(F_.relu(model.conv(batch))))
+    if pooled.so.extras.get("pool_mode") != "masked":
+        raise AssertionError(f"{tag}: the request did not take masked "
+                             "pooling")
+    steps = int(pooled.graph.node_mask.sum())
+
+    # the main path, counted: the predictor answers every request
+    reset_counts()
+    req_ms, served = [], []
+    for g in graphs:
+        t0 = time.perf_counter()
+        served.append(predictor([g]))
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = read_counts()
+    k4_routes = dict(_wrappers()["sorted_segment_sum"].launches_by_route)
+    want = dict.fromkeys(launches, 0)
+    want.update(spmm_csr=K1_PER_REQUEST["topk"] * REQUESTS,
+                sorted_segment_sum=K4_PER_AGGR_REQUEST[aggr] * REQUESTS)
+    if launches != want:
+        raise AssertionError(f"{tag}: {REQUESTS} requests launched "
+                             f"{launches}, want {want}")
+    served = np.concatenate(served)
+    if served.shape != (REQUESTS, CLASSES) or not np.isfinite(served).all():
+        raise AssertionError(f"{tag}: bad logits {served}")
+    again = predictor([graphs[0]])
+    if not np.array_equal(again[0], served[0]):
+        raise AssertionError(f"{tag}: two requests on one graph differ: "
+                             f"{again[0]} vs {served[0]}")
+    fwd = []
+    with torch.inference_mode():
+        for _ in range(5):
+            fwd.append(_timed_step(lambda: model(batch))[0])
+
+    cpu = build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode(), pinned_selection(replay=sels, topk=True):
+        ref = cpu(batch.to("cpu")).numpy()
+    tol = 2e-2 * float(np.abs(ref).max())
+    diff = float(np.abs(served[0] - ref[0]).max())
+    if diff > tol:
+        raise AssertionError(f"{tag}: GPU logits {served[0]} vs CPU "
+                             f"{ref[0]}: max |diff| {diff} > {tol}")
+    result = dict(
+        card=card, requests=REQUESTS, request_ms=req_ms,
+        request_ms_median=statistics.median(req_ms),
+        forward_device_ms=statistics.median(fwd), forward_device_ms_all=fwd,
+        launches=launches,
+        k4_launches_by_route=k4_routes, k1_launches_per_request=launches["spmm_csr"] / REQUESTS,
+        k4_launches_per_request=launches["sorted_segment_sum"] / REQUESTS,
+        recurrent_steps=steps if aggr == "lstm" else None,
+        pooled_valid_nodes=steps, logits_first=served[0].tolist(),
+        cpu_logits_first=ref[0].tolist(), max_abs_diff_vs_cpu=diff, tol=tol,
+        repeat_bit_equal=True, selection_from="card")
+    print(f"[{tag}] {json.dumps(result)}", flush=True)
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof
+        with torch.inference_mode(), prof(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            for _ in range(3):
+                model(batch)
+            torch.cuda.synchronize()
+        print(f"[{tag} profile]", flush=True)
+        print(p.key_averages().table(sort_by="cuda_time_total",
+                                     row_limit=25), flush=True)
+        busy = sum(e.self_device_time_total for e in p.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation) / 1e3
+        row = dict(forwards=3, device_busy_ms=busy,
+                   busy_ms_per_forward=busy / 3)
+        print(f"[{tag} profile] {json.dumps(row)}", flush=True)
+    return result
+
+
 def phase_locality(card, graphs):
     """The locality path on the union of ``graphs`` (block-diagonal):
     RCM plans, ``locality_spmm`` with the banded (K5) and default (K2)
@@ -2284,6 +2647,7 @@ def main(argv=None) -> int:
     d_graphs, d_labels = dense_graphs(0)
     modes.update(phase_kernels_readout(batch, d_graphs))
     modes.update(phase_kernels_gather_grad(batch, d_graphs, d_labels))
+    modes.update(phase_kernels_aggr(batch, d_graphs, d_labels))
 
     # the dense training slice's batch (bench.py::bench_jax): collated,
     # densified and normalized once, outside the steps
@@ -2323,12 +2687,19 @@ def main(argv=None) -> int:
                                         args.profile, alias)
               for alias in ("mincut", "mincut_u", "bnpool", "bnpool_u")}
     phase_dense_family(card, d_graphs)
+    zoo = phase_aggr_zoo(card, d_graphs, d_labels)
+    small.update({f"aggr_{a}": phase_train_small(card, d_graphs, d_labels,
+                                                  f"aggr_{a}", args.profile)
+                  for a in TRAIN_AGGRS})
+    serving_aggr = {a: phase_serving_aggr(card, graphs, batch, args.profile,
+                                          a) for a in SERVING_AGGRS}
     locality = phase_locality(card, d_graphs)
     # the main paths' launches, each kernel summed over every path that
     # runs it (and K2 in the locality path)
     all_runs = (serving, sparse, serving_sag, train_sag, *small.values(),
                 *serving_cl.values(), *train_cl.values(), train,
-                serving_mc, train_mc, *mincut.values())
+                serving_mc, train_mc, *mincut.values(), zoo,
+                *serving_aggr.values())
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -2375,7 +2746,13 @@ def main(argv=None) -> int:
             ("maxcut serving", serving_mc, f"{REQUESTS} requests"),
             ("maxcut training", train_mc, f"{CLUSTER_STEPS} steps"),
             *((f"{alias} training", r, f"{MINCUT_STEPS} steps")
-              for alias, r in mincut.items()))
+              for alias, r in mincut.items()),
+            ("aggregation zoo", zoo,
+             f"{2 * zoo['aliases']} forwards and backwards"),
+            *((f"{a} readout training", small[f"aggr_{a}"],
+               f"{SMALL_STEPS} steps") for a in TRAIN_AGGRS),
+            *((f"{a} readout serving", r, f"{REQUESTS} requests")
+              for a, r in serving_aggr.items()))
     print("launches: " + "; ".join(
         f"{name} K1 {r['launches']['spmm_csr']}, K2 "
         f"{r['launches']['segment_sum_sorted']}, K3 "

@@ -29,6 +29,8 @@ from tgp_tpu_torch.src import DenseSRCPooling
 
 #: which pipeline the last ``main()`` run took ("dense" | "sparse")
 LAST_ROUTE = None
+#: the ROADMAP.md item that ports the datasets and checkpoints, by name
+TODO_ITEM = "datasets/* and utils/{checkpoint,cheatsheet,typing}.py"
 
 
 def load_dataset(dataset: str, data_dir: str | None = None):
@@ -39,7 +41,7 @@ def load_dataset(dataset: str, data_dir: str | None = None):
         return graphs, labels, 3
     raise NotImplementedError(
         f"dataset {dataset!r} is not ported: the TU, GCB and EXPWL1 "
-        "readers come with tgp_tpu/datasets (ROADMAP.md queue 1, item 9)")
+        f"readers come with ROADMAP.md's queue 1 item {TODO_ITEM!r}")
 
 
 def build_model(alias: str, num_classes: int, hidden: int,
@@ -69,8 +71,8 @@ def main(alias: str = "topk", epochs: int = 20, batch_size: int = 32,
          data_dir: str | None = None, device="cuda"):
     if checkpoint_dir:
         raise NotImplementedError(
-            "checkpoints are not ported: they come with tgp_tpu/utils/"
-            "checkpoint.py (ROADMAP.md queue 1, item 9)")
+            "checkpoints are not ported: they come with ROADMAP.md's queue "
+            f"1 item {TODO_ITEM!r}")
     device = resolve_device(device)
     graphs, labels, num_classes = load_dataset(dataset, data_dir)
     n_train = int(0.85 * len(graphs)) if dataset != "synthetic" else 300

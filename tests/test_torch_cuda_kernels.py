@@ -1552,3 +1552,111 @@ def test_cuda_bnpool_on_replayed_draws_gives_the_cpus_loss(batched):
         dp.draw_gamma, bnpool.negative_edge_sampling = real_gamma, real_neg
     for k, ref in losses["cpu"].items():
         assert abs(losses["cuda"][k] - ref) <= 1e-4 * max(abs(ref), 1), k
+
+
+#: the aggregations of ``reduce/aggr.py`` held on the card: every learnable
+#: one, and the stateless softmax, mul and median
+_CARD_AGGRS = ("attentional", "deep_sets", "equilibrium",
+               "graph_multiset_transformer", "gru", "lcm", "lstm", "mlp",
+               "patch_transformer", "set2set", "set_transformer", "sort",
+               "softmax", "mul", "median")
+
+
+def _aggr_pair(alias, shift):
+    """``AggrReduce(alias)`` built on the CPU (its weights shifted by
+    ``shift``, so no bias is 0) and a copy on the card; 3,000 rows of 32
+    in 40 segments, the last one empty, 10% masked."""
+    from tgp_tpu_torch.reduce.aggr import AggrReduce
+
+    kw = {"max_len": 128} if alias in ("mlp", "patch_transformer") else {}
+    cpu = AggrReduce(alias, in_channels=32, device="cpu",
+                     generator=torch.Generator().manual_seed(0), **kw)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(shift)
+    card = AggrReduce(alias, in_channels=32, device="cuda", **kw)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(50)
+    x = torch.tensor(rng.normal(size=(3000, 32)).astype(np.float32))
+    seg = torch.tensor(rng.integers(0, 39, 3000))
+    mask = torch.tensor(rng.random(3000) > 0.1)
+    return cpu, card, (x, seg, mask)
+
+
+def _aggr_run(mod, x, seg, mask, device):
+    """A forward and backward against a fixed cotangent: the output, the
+    input's gradient and each parameter's (on the CPU)."""
+    x = x.to(device).requires_grad_(True)
+    mod.zero_grad(set_to_none=True)
+    out = mod(x, node_graph=seg.to(device), num_graphs=40,
+              node_mask=mask.to(device))
+    R = torch.randn(out.shape, generator=torch.Generator().manual_seed(3))
+    (out * R.to(device)).sum().backward()
+    return {"out": out.detach().cpu(), "x": x.grad.cpu(),
+            **{k: p.grad.cpu() for k, p in mod.named_parameters()}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", _CARD_AGGRS)
+def test_cuda_aggr_matches_cpu_and_repeats_bit_equal(alias):
+    """On the card: a forward and backward twice give the same bits
+    (output, input and parameter gradients), the output within 1e-4 of
+    its largest |value| of the CPU's (1e-3 for the cuDNN recurrent nets),
+    each gradient within 5e-2 of its largest |value| (the smoke's
+    bounds; a leaf whose gradient is 0 in exact arithmetic, such as an
+    attention block's key bias, within 5e-2 of its weight's)."""
+    _skip_without_card()
+    cpu, card, data = _aggr_pair(alias, 0.05)
+    first = _aggr_run(card, *data, "cuda")
+    second = _aggr_run(card, *data, "cuda")
+    assert all(torch.equal(first[k], second[k]) for k in first)
+    ref = _aggr_run(cpu, *data, "cpu")
+    tol = 1e-3 if alias in ("lstm", "gru", "set2set") else 1e-4
+    assert (first["out"] - ref["out"]).abs().max() <= \
+        tol * ref["out"].abs().max()
+    for k, got in first.items():
+        if k == "out":
+            continue
+        assert torch.isfinite(got).all()
+        zero = k.endswith(".key.bias") or (alias, k) == (
+            "attentional", "aggr.dense_0.bias")  # the gate's bias
+        scale = ref[k.replace("bias", "weight") if zero else k].abs().max()
+        assert (got - ref[k]).abs().max() <= 5e-2 * scale + 1e-30, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", ["lstm", "gru"])
+def test_cuda_recurrent_aggr_reads_step_zero_of_an_empty_segment(alias):
+    """Every weight shifted by 0.3: the empty segment's output is the
+    net's step 0 on a zero input, as on the CPU (and as JAX reads it),
+    not 0."""
+    _skip_without_card()
+    cpu, card, data = _aggr_pair(alias, 0.3)
+    got = _aggr_run(card, *data, "cuda")["out"][39]
+    ref = _aggr_run(cpu, *data, "cpu")["out"][39]
+    assert ref.abs().max() > 1e-2
+    assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", ["lstm", "gru"])
+def test_cuda_recurrent_aggr_runs_a_segment_past_cudnns_limit(alias):
+    """One segment of 70,000 rows (cuDNN refuses 65,536 steps of batch 1):
+    the readout runs in ``RNN_CHUNK`` chunks, the state carried over, and
+    agrees with the CPU's within 1e-3 of its largest |value|."""
+    from tgp_tpu_torch.reduce.aggr import RNN_CHUNK, AggrReduce
+
+    _skip_without_card()
+    n = 70_000
+    assert n > 4 * RNN_CHUNK
+    cpu = AggrReduce(alias, in_channels=16, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    card = AggrReduce(alias, in_channels=16, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(n, 16, generator=torch.Generator().manual_seed(1))
+    args = dict(node_graph=torch.zeros(n, dtype=torch.long), num_graphs=1)
+    with torch.no_grad():
+        ref = cpu(x, **args)
+        got = card(x.cuda(), **{k: v.cuda() if torch.is_tensor(v) else v
+                                for k, v in args.items()}).cpu()
+    assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()

@@ -163,9 +163,12 @@ assert {'tgp_tpu_torch.ops.kernels.bmm', 'tgp_tpu_torch.models.prepare',
         'tgp_tpu_torch.ops.sampling', 'tgp_tpu_torch.ops.lap',
         'tgp_tpu_torch.ops.assignment', 'tgp_tpu_torch.select.dp',
         'tgp_tpu_torch.select.maxcut', 'tgp_tpu_torch.poolers.bnpool',
-        'tgp_tpu_torch.poolers.maxcut'} <= set(mods), mods
+        'tgp_tpu_torch.poolers.maxcut',
+        'tgp_tpu_torch.reduce.aggr'} <= set(mods), mods
 import examples.classification_torch
 import examples.classification_pan_torch
+import examples.classification_aggr_reduce_torch
+from tgp_tpu_torch.reduce.aggr import AggrReduce, get_aggr
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tgp_tpu'))
 assert not bad, bad
@@ -183,6 +186,12 @@ for call in (lambda: tgp_tpu_torch.from_graphs(g),
              lambda: tgp_tpu_torch.get_pooler('bnpool', in_channels=4),
              lambda: tgp_tpu_torch.get_pooler('bnpool_u', in_channels=4),
              lambda: tgp_tpu_torch.get_pooler('maxcut', in_channels=4),
+             lambda: get_aggr('lstm', in_channels=4),
+             lambda: get_aggr('set2set', in_channels=4),
+             lambda: AggrReduce('sum'),
+             lambda: AggrReduce('set_transformer', in_channels=4),
+             lambda: examples.classification_aggr_reduce_torch.Net(4),
+             lambda: examples.classification_aggr_reduce_torch.main('lstm'),
              lambda: GraphLoader(g),
              lambda: examples.classification_torch.main('sag', epochs=1),
              lambda: tgp_tpu_torch.PoolingClassifier(None, 3, hidden=4),
