@@ -137,7 +137,23 @@ each of which raises on failure:
    times a request, K4 6 and 0 times), logits held to the CPU on the
    card's replayed selection, a repeated request bit-equal, the LSTM's
    recurrent steps reported;
-14. the locality path on the union of the dense graphs (16,384 nodes):
+14. the precoarsening pipeline (``examples/pre_coarsening_torch.py``'s
+   ``PrecoarsenedNet``, hidden 128, f32: GCN → per level (reduce → GCN) →
+   sum readout → head; the selection made on the host beforehand):
+   ``[serving_precoarsen]`` serves the full-size requests, each through
+   ``PreCoarsening("graclus", levels=2)`` (the native matching asserted)
+   and ``PooledGraphLoader(batch_size=1)`` on the card, with precoarsen,
+   collate and request ms, K1 once a request and K4 counted, the busy
+   time of a forward, a repeated request bit-equal and the logits held to
+   the CPU; ``[train_precoarsen_<schedule>]`` trains it 5 Adam steps on
+   the ASAP cell after the schedules ``graclus``, ``mixed`` (NDP, then
+   Graclus), ``sep``, ``nmf`` (k = 8) and ``eigen`` (k = 12, then 4),
+   with the host's seconds, step one repeated bit for bit and held to the
+   CPU, the step median, busy time and idle share; ``[host_poolers]``
+   calls ``get_pooler`` with ``ndp``, ``nmf``, ``sep`` and ``eigen`` on
+   the ASAP cell's batch, pooled output and lift held to the CPU; K4's
+   ``[kernels]`` rows at three of these paths' shapes;
+15. the locality path on the union of the dense graphs (16,384 nodes):
    ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
    engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
    ``sddmm_banded`` (K6) on the same plan, each held against the plain
@@ -332,6 +348,35 @@ SMALL_LAUNCHES.update({f"aggr_{a}": {"sorted_segment_sum": n} for a, n in
 # product); K4: set2set's normalizer and weighted sum, 3 steps; lstm none
 SERVING_AGGRS = ("set2set", "lstm")
 K4_PER_AGGR_REQUEST = {"set2set": 6, "lstm": 0}
+# the precoarsened model (examples/pre_coarsening_torch.py's
+# PrecoarsenedNet, hidden 128, f32): GCN → per level (reduce → GCN) → sum
+# readout → head, the selection made once on the host beforehand.  Served
+# on the serving requests after PreCoarsening("graclus", levels=2): K1 once
+# a request (the first GCN's CSR branch), K4 for the rest (a level's
+# cluster sums, its generic GCN's degree and aggregation; the readout)
+PRE_SERVING_LEVELS = 2
+K4_PER_PRE_REQUEST = 1 + 3 * PRE_SERVING_LEVELS
+# trained on the ASAP cell with the reference example's schedules and two
+# more aliases (NMF with k = 8; EigenPool k = 12 → 4, its modes widening a
+# level's input to 3 · 128)
+PRE_SCHEDULES = {"graclus": dict(poolers="graclus", levels=2),
+                 "mixed": dict(poolers=[("ndp", {}), ("graclus", {})]),
+                 "sep": dict(poolers="sep", levels=2),
+                 "nmf": dict(poolers=("nmf", {"k": 8}), levels=2),
+                 "eigen": dict(poolers=[("eigen", {"k": 12}),
+                                        ("eigen", {"k": 4})])}
+PRE_STEPS = 5
+# K4 a step: 9 forward with a total assignment (the three GCNs' degree and
+# aggregation, each level's cluster sums, the readout; NDP's partial
+# selection and the dense levels reduce without it) and 3 backward (the
+# GCNs' message gathers)
+PRE_K4_PER_STEP = {"graclus": 12, "mixed": 11, "sep": 12, "nmf": 10,
+                   "eigen": 10}
+# the host-side poolers through get_pooler on the ASAP cell's batch; the
+# pooled features and the lift held to the CPU call within this of their
+# largest |value| (other sum orders of f32 products)
+HOST_POOLERS = {"ndp": {}, "nmf": {"k": 8}, "sep": {}, "eigen": {"k": 8}}
+HOST_POOL_TOL = 1e-4
 
 
 def request_graph(seed: int):
@@ -1620,10 +1665,11 @@ def phase_train_default(card, graphs, labels):
     return result
 
 
-def _idle_profile(step, steps, med_ms, tag):
+def _idle_profile(step, steps, med_ms, tag, table=True):
     """Profile ``steps`` calls of ``step()`` and print the kernel table
-    and the device's busy time a step; the idle share of an unprofiled
-    step is 1 − (busy per step) / (its median time ``med_ms``)."""
+    (with ``table``) and the device's busy time a step; the idle share of
+    an unprofiled step is 1 − (busy per step) / (its median time
+    ``med_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
     torch.cuda.synchronize()
@@ -1638,8 +1684,9 @@ def _idle_profile(step, steps, med_ms, tag):
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation) / 1e3
-    print(events.table(sort_by="self_device_time_total", row_limit=30),
-          flush=True)
+    if table:
+        print(events.table(sort_by="self_device_time_total", row_limit=30),
+              flush=True)
     # index_add_'s kernels (indexFuncSmallIndex / indexFuncLargeIndex)
     index_add_ms = sum(e.self_device_time_total for e in events
                        if e.device_type == DeviceType.CUDA
@@ -2518,6 +2565,377 @@ def phase_serving_aggr(card, graphs, batch, profile: bool, aggr: str):
     return result
 
 
+def _precoarsened_batch(graphs, labels, schedule_kw, device):
+    """``graphs`` through ``PreCoarsening(**schedule_kw)`` on the host
+    (seconds taken), and the whole set as one batch of
+    ``PooledGraphLoader`` on ``device``: ``(pooled graphs, seconds,
+    batch, level batches, labels)``."""
+    from tgp_tpu_torch.data.pooled_loader import PooledGraphLoader
+    from tgp_tpu_torch.precoarsen import PreCoarsening
+
+    tf = PreCoarsening(**schedule_kw)
+    t0 = time.perf_counter()
+    pooled = [tf(g) for g in graphs]
+    secs = time.perf_counter() - t0
+    loader = PooledGraphLoader(pooled, labels, batch_size=len(pooled),
+                               device=device)
+    return (pooled, secs) + tuple(next(iter(loader)))
+
+
+def _precoarsened_net(device, pooled_graph):
+    """The precoarsening twin's ``PrecoarsenedNet`` (hidden 128, f32)
+    with weights from a seeded generator, its level widths read from a
+    transformed graph."""
+    from examples.pre_coarsening_torch import PrecoarsenedNet, level_modes
+
+    return PrecoarsenedNet(FEATURES, CLASSES, hidden=HIDDEN,
+                           level_modes=level_modes(pooled_graph),
+                           device=device,
+                           generator=torch.Generator().manual_seed(0))
+
+
+def _forward_busy_ms(fn, tag, profile, runs=3):
+    """Device busy time of ``runs`` calls of ``fn()`` (the profiler's
+    device events), per call; the table with ``profile``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = p.key_averages()
+    if profile:
+        print(f"[{tag} profile]", flush=True)
+        print(events.table(sort_by="self_device_time_total", row_limit=25),
+              flush=True)
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3 / runs
+
+
+def phase_kernels_precoarsen(graphs, d_graphs, d_labels):
+    """K4 at the precoarsened paths' shapes: the served request's first
+    Graclus level (its cluster sums: the 65,536 f32 rows of 128 into the
+    level's cluster slots; the level's GCN aggregation: its normalized
+    messages, edges and self-loops, into its nodes) and the trained
+    Graclus batch's first level (the ASAP cell's 16,384 rows into its
+    cluster slots).  Each held to the plain version at REL_TOL and run
+    twice for the same bits; library: ``index_add_``; ``sort_ms``: the
+    stable sort and offsets before the kernel."""
+    from tgp_tpu_torch.mp.gcn import gcn_norm
+    from tgp_tpu_torch.ops.kernels import segment_spmm as K
+    from tgp_tpu_torch.ops.segment import _sorted_layout
+
+    serve = _precoarsened_batch(
+        graphs[:1], None, dict(poolers="graclus", levels=PRE_SERVING_LEVELS),
+        "cuda")
+    train = _precoarsened_batch(d_graphs, d_labels,
+                                PRE_SCHEDULES["graclus"], "cuda")
+    s_lb, t_lb = serve[3][0], train[3][0]
+    cases = (("served level reduce", s_lb.so.cluster_index,
+              s_lb.so.node_sel_mask, s_lb.so.num_clusters),
+             ("served level GCN", gcn_norm(s_lb.graph)[1], None,
+              s_lb.graph.num_nodes),
+             ("trained level reduce", t_lb.so.cluster_index,
+              t_lb.so.node_sel_mask, t_lb.so.num_clusters))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for what, ids, keep, B in cases:
+        ids = ids.long()
+        E, F = ids.shape[0], HIDDEN
+        if keep is None:
+            keep = torch.ones(E, dtype=torch.bool, device="cuda")
+        x = torch.randn(E, F, generator=gen, device="cuda")
+        cids = ids.to(torch.int32)
+        perm, rp = _sorted_layout(ids, B, False)
+        name = f"K4 precoarsen {what} F={F} float32 segments={B}"
+        rows[name] = check_mode(
+            name, lambda: K.gather_segment_sum(x, perm, keep, cids, rp, B),
+            lambda: K.gather_segment_sum_plain(x, perm, keep, rp, B),
+            lambda: torch.zeros(B, F, device="cuda").index_add_(
+                0, ids, torch.where(keep[:, None], x, 0.0)),
+            rel_tol=REL_TOL,
+            bound_bytes=4 * E * F + 4 * E + E + 4 * (B + 1) + 4 * B * F,
+            flops=E * F, peak=FP32_FLOPS_PER_S,
+            scale=K.gather_segment_sum_plain(x.abs(), perm, keep, rp, B),
+            flush=flush, note="index_add_ of the kept rows", twice=True,
+            extra={"rows": E, "kept": int(keep.sum()),
+                   "route": K.segment_route(B, E, F),
+                   "sort_ms": median_ms(
+                       lambda: _sorted_layout(ids, B, False), flush)})
+    del flush
+    return rows
+
+
+def phase_serving_precoarsen(card, graphs, profile: bool):
+    """The precoarsened model served on the full-size requests: each
+    request is one graph through ``PreCoarsening("graclus", levels=2)``
+    on the host (the native matching asserted), collated by
+    ``PooledGraphLoader(batch_size=1)`` on the card, and a
+    ``PrecoarsenedNet`` forward (hidden 128, f32) whose logits come back
+    to the host.  Per request: precoarsen, collate and request ms; K1 and
+    K4 counted; a repeated request bit-equal; the logits held against the
+    same model and levels on the CPU within 2% of their scale; the busy
+    time of a forward, profiled."""
+    from tgp_tpu_torch import _native
+    from tgp_tpu_torch.data.pooled_loader import PooledGraphLoader
+    from tgp_tpu_torch.precoarsen import PreCoarsening
+
+    tf = PreCoarsening("graclus", levels=PRE_SERVING_LEVELS)
+
+    def request(g, device, model):
+        t0 = time.perf_counter()
+        pooled = tf(g)
+        t1 = time.perf_counter()
+        batch, lbs = next(iter(PooledGraphLoader([pooled], batch_size=1,
+                                                 device=device)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.inference_mode():
+            logits = model(batch, lbs).cpu().numpy()
+        t3 = time.perf_counter()
+        return logits, pooled, (batch, lbs), dict(
+            precoarsen_ms=1e3 * (t1 - t0), collate_ms=1e3 * (t2 - t1),
+            request_ms=1e3 * (t3 - t0))
+
+    first = tf(graphs[0])
+    model = _precoarsened_net("cuda", first).eval()
+    request(graphs[0], "cuda", model)  # warm-up: handles, allocator
+
+    # the main path, counted: every request, host work included
+    reset_counts()
+    runs_before = dict(_native.engine_runs)
+    served, times, levels = [], [], []
+    for g in graphs:
+        logits, pooled, (batch, lbs), t = request(g, "cuda", model)
+        served.append(logits)
+        times.append(t)
+        levels.append([int(lv["num_clusters"]) for lv in pooled[-1]])
+    launches = read_counts()
+    k4_routes = dict(_wrappers()["sorted_segment_sum"].launches_by_route)
+    native = {k: v - runs_before[k] for k, v in _native.engine_runs.items()}
+    if native != {"native": PRE_SERVING_LEVELS * len(graphs), "numpy": 0}:
+        raise AssertionError(f"serving_precoarsen: the host matching ran on "
+                             f"{native}, want the native library only")
+    want = dict.fromkeys(launches, 0)
+    want.update(spmm_csr=len(graphs),
+                sorted_segment_sum=K4_PER_PRE_REQUEST * len(graphs))
+    if launches != want:
+        raise AssertionError(f"serving_precoarsen: {len(graphs)} requests "
+                             f"launched {launches}, want {want}")
+    served = np.concatenate(served)
+    if served.shape != (len(graphs), CLASSES) or not np.isfinite(served).all():
+        raise AssertionError(f"serving_precoarsen: bad logits {served}")
+    again = request(graphs[0], "cuda", model)[0]
+    if not np.array_equal(again[0], served[0]):
+        raise AssertionError(f"serving_precoarsen: two requests on one graph "
+                             f"differ: {again[0]} vs {served[0]}")
+    with torch.inference_mode():
+        batch, lbs = next(iter(PooledGraphLoader([first], batch_size=1,
+                                                 device="cuda")))
+        busy = _forward_busy_ms(lambda: model(batch, lbs),
+                                "serving_precoarsen", profile)
+    cpu = _precoarsened_net("cpu", first).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ref = request(graphs[0], "cpu", cpu)[0]
+    tol = 2e-2 * float(np.abs(ref).max())
+    diff = float(np.abs(served[0] - ref[0]).max())
+    if diff > tol:
+        raise AssertionError(f"serving_precoarsen: GPU logits {served[0]} vs "
+                             f"CPU {ref[0]}: max |diff| {diff} > {tol}")
+    result = dict(
+        card=card, requests=len(graphs), levels=PRE_SERVING_LEVELS,
+        clusters_per_level=levels, host_engine=native,
+        precoarsen_ms=[t["precoarsen_ms"] for t in times],
+        collate_ms=[t["collate_ms"] for t in times],
+        request_ms=[t["request_ms"] for t in times],
+        request_ms_median=statistics.median(t["request_ms"] for t in times),
+        busy_ms_per_forward=busy, launches=launches,
+        k4_launches_by_route=k4_routes,
+        k1_launches_per_request=launches["spmm_csr"] / len(graphs),
+        k4_launches_per_request=launches["sorted_segment_sum"] / len(graphs),
+        logits_first=served[0].tolist(), cpu_logits_first=ref[0].tolist(),
+        max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=True)
+    print(f"[serving_precoarsen] {json.dumps(result)}", flush=True)
+    return result
+
+
+def phase_train_precoarsen(card, graphs, labels, schedule, profile: bool):
+    """``PrecoarsenedNet`` (hidden 128, f32) trained PRE_STEPS Adam steps
+    on the ASAP cell (the dense cell's 64 graphs, one batch) after
+    ``PreCoarsening(**PRE_SCHEDULES[schedule])`` on the host: step one
+    repeated bit for bit and held against the CPU, the launches counted
+    (no K1 below PALLAS_MIN_EDGES; K4 for every sum), the step median,
+    the busy time a step and the idle share."""
+    tag = f"train_precoarsen_{schedule}"
+    pooled, secs, batch, lbs, y = _precoarsened_batch(
+        graphs, labels, PRE_SCHEDULES[schedule], "cuda")
+    y = torch.as_tensor(y, device="cuda").long()
+    model = _precoarsened_net("cuda", pooled[0])
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def loss_and_grads(m, b, levels, yy):
+        m.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(m(b, levels), yy)
+        loss.backward()
+        return loss.detach(), {k: v.grad.detach().float().clone()
+                               for k, v in m.named_parameters()}
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(batch, lbs), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    repeat = step_one_repeats(tag, lambda: loss_and_grads(model, batch, lbs,
+                                                          y))
+    # the main path, counted
+    reset_counts()
+    step_ms, losses = [], []
+    for i in range(PRE_STEPS):
+        if i == 0:
+            def first():
+                out = loss_and_grads(model, batch, lbs, y)
+                opt.step()
+                return out
+
+            ms, (loss, grads0) = _timed_step(first)
+            grads0 = {k: v.cpu() for k, v in grads0.items()}
+            loss0 = float(loss)
+        else:
+            ms, loss = _timed_step(step)
+        step_ms.append(ms)
+        losses.append(float(loss))
+    launches = read_counts()
+    k4_routes = dict(_wrappers()["sorted_segment_sum"].launches_by_route)
+    want = dict.fromkeys(launches, 0)
+    want["sorted_segment_sum"] = PRE_K4_PER_STEP[schedule] * PRE_STEPS
+    if launches != want:
+        raise AssertionError(f"{tag}: {PRE_STEPS} steps launched "
+                             f"{launches}, want {want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: non-finite losses {losses}")
+
+    cpu = _precoarsened_net("cpu", pooled[0])
+    cpu.load_state_dict(init)
+    from tgp_tpu_torch.data.pooled_loader import PooledGraphLoader
+    cb, clbs, cy = next(iter(PooledGraphLoader(
+        pooled, labels, batch_size=len(pooled), device="cpu")))
+    cpu_loss, cpu_grads = loss_and_grads(cpu, cb, clbs,
+                                         torch.as_tensor(cy).long())
+    cpu_loss = float(cpu_loss)
+    loss_err, grad_err = _step_one_errors(f"{tag}: step one", loss0, grads0,
+                                          cpu_loss, cpu_grads)
+    med = statistics.median(step_ms)
+    result = dict(
+        card=card, schedule=schedule, graphs=len(graphs),
+        nodes=int(batch.node_mask.sum()), edges=int(batch.edge_mask.sum()),
+        precoarsen_s=secs,
+        clusters_per_level=[int(lb.graph.node_mask.sum()) for lb in lbs],
+        level_kinds=[("eigen" if lb.so.num_modes else "dense")
+                     if lb.so.assignment is not None else "sparse"
+                     for lb in lbs],
+        steps=PRE_STEPS, step_ms=step_ms, step_ms_median=med, losses=losses,
+        launches=launches, k4_launches_by_route=k4_routes,
+        k4_launches_per_step=launches["sorted_segment_sum"] / PRE_STEPS,
+        step1_loss=loss0, step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
+        loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
+        grad_rel_tol=GRAD_REL_TOL, step1_repeat_bit_equal=repeat)
+    result["profile"] = _idle_profile(step, 3, med, tag, table=profile)
+    print(f"[{tag}] {json.dumps(result)}", flush=True)
+    return result
+
+
+def phase_host_poolers(card, graphs, labels):
+    """``get_pooler`` with ``"ndp"``, ``"nmf"``, ``"sep"`` and
+    ``"eigen"`` called eagerly on the ASAP cell's batch on the card (the
+    selection on the host, the reduce on the card), against the same call
+    on the CPU: the pooled features within HOST_POOL_TOL of their largest
+    |value|, the pooled graph and the selection equal; then
+    ``lifting=True`` on the pooled features, held the same way (NDP's
+    kept nodes get their own rows back).  ms a call: host and device,
+    the second of two calls."""
+    from tgp_tpu_torch import get_pooler
+    from tgp_tpu_torch.data import GraphLoader
+
+    batch, _ = next(iter(GraphLoader(graphs, labels,
+                                     batch_size=len(graphs), device="cuda")))
+    cpu_batch = batch.to("cpu")
+    rows, total = {}, {}
+
+    def close(name, got, ref):
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((got.cpu() - ref).abs().max()) / scale
+        if not (torch.isfinite(got).all() and err <= HOST_POOL_TOL):
+            raise AssertionError(f"host_poolers {name}: card vs CPU "
+                                 f"{err} > {HOST_POOL_TOL}")
+        return err
+
+    for alias, kw in HOST_POOLERS.items():
+        pooler = get_pooler(alias, **kw)
+        reset_counts()
+        with torch.no_grad():
+            out = pooler(batch)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pooler(batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        with torch.no_grad():
+            ref = pooler(cpu_batch)
+        x_err = close(f"{alias} x", out.graph.x, ref.graph.x)
+        for f in ("senders", "receivers", "edge_weight", "edge_mask",
+                  "node_graph", "node_pos", "node_mask"):
+            if not torch.equal(getattr(out.graph, f).cpu(),
+                               getattr(ref.graph, f)):
+                raise AssertionError(f"host_poolers {alias}: pooled {f} "
+                                     "differs from the CPU's")
+        sel = (("cluster_index", "weight", "node_sel_mask")
+               if out.so.is_sparse else ("assignment",))
+        for f in sel:
+            if not torch.equal(getattr(out.so, f).cpu(), getattr(ref.so, f)):
+                raise AssertionError(f"host_poolers {alias}: selection {f} "
+                                     "differs from the CPU's")
+        x_pool = out.graph.x
+        if not out.so.is_sparse:
+            B, K = batch.num_graphs, out.so.num_clusters
+            x_pool = x_pool[: B * K].reshape(B, K, -1)
+        with torch.no_grad():
+            lifted = pooler(batch, so=out.so, lifting=True, x=x_pool)
+            lifted_ref = pooler(cpu_batch, so=ref.so, lifting=True,
+                                x=x_pool.cpu())
+        lift_err = close(f"{alias} lift", lifted, lifted_ref)
+        if alias == "ndp":
+            keep = out.so.node_sel_mask
+            if not (torch.equal(lifted[keep], batch.x[keep])
+                    and not lifted[~keep].any()):
+                raise AssertionError("host_poolers ndp: the lift of the "
+                                     "pooled rows is not the kept rows")
+        rows[alias] = dict(ms=ms, launches=launches,
+                           clusters=int(out.graph.node_mask.sum()),
+                           pooled_edges=int(out.graph.edge_mask.sum()),
+                           x_shape=list(out.graph.x.shape),
+                           x_rel_err=x_err, lift_rel_err=lift_err)
+    result = dict(card=card, graphs=len(graphs),
+                  nodes=int(batch.node_mask.sum()), tol=HOST_POOL_TOL,
+                  launches=total, per_alias=rows)
+    print(f"[host_poolers] {json.dumps(result)}", flush=True)
+    return result
+
+
+
 def phase_locality(card, graphs):
     """The locality path on the union of ``graphs`` (block-diagonal):
     RCM plans, ``locality_spmm`` with the banded (K5) and default (K2)
@@ -2648,6 +3066,7 @@ def main(argv=None) -> int:
     modes.update(phase_kernels_readout(batch, d_graphs))
     modes.update(phase_kernels_gather_grad(batch, d_graphs, d_labels))
     modes.update(phase_kernels_aggr(batch, d_graphs, d_labels))
+    modes.update(phase_kernels_precoarsen(graphs, d_graphs, d_labels))
 
     # the dense training slice's batch (bench.py::bench_jax): collated,
     # densified and normalized once, outside the steps
@@ -2693,13 +3112,19 @@ def main(argv=None) -> int:
                   for a in TRAIN_AGGRS})
     serving_aggr = {a: phase_serving_aggr(card, graphs, batch, args.profile,
                                           a) for a in SERVING_AGGRS}
+    serving_pre = phase_serving_precoarsen(card, graphs, args.profile)
+    train_pre = {sch: phase_train_precoarsen(card, d_graphs, d_labels, sch,
+                                             args.profile)
+                 for sch in PRE_SCHEDULES}
+    host_pools = phase_host_poolers(card, d_graphs, d_labels)
     locality = phase_locality(card, d_graphs)
     # the main paths' launches, each kernel summed over every path that
     # runs it (and K2 in the locality path)
     all_runs = (serving, sparse, serving_sag, train_sag, *small.values(),
                 *serving_cl.values(), *train_cl.values(), train,
                 serving_mc, train_mc, *mincut.values(), zoo,
-                *serving_aggr.values())
+                *serving_aggr.values(), serving_pre, *train_pre.values(),
+                host_pools)
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -2752,7 +3177,12 @@ def main(argv=None) -> int:
             *((f"{a} readout training", small[f"aggr_{a}"],
                f"{SMALL_STEPS} steps") for a in TRAIN_AGGRS),
             *((f"{a} readout serving", r, f"{REQUESTS} requests")
-              for a, r in serving_aggr.items()))
+              for a, r in serving_aggr.items()),
+            ("precoarsened serving", serving_pre, f"{REQUESTS} requests"),
+            *((f"precoarsened {sch} training", r, f"{PRE_STEPS} steps")
+              for sch, r in train_pre.items()),
+            ("host poolers", host_pools,
+             f"{len(HOST_POOLERS)} eager calls"))
     print("launches: " + "; ".join(
         f"{name} K1 {r['launches']['spmm_csr']}, K2 "
         f"{r['launches']['segment_sum_sorted']}, K3 "

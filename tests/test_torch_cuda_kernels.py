@@ -1660,3 +1660,126 @@ def test_cuda_recurrent_aggr_runs_a_segment_past_cudnns_limit(alias):
         got = card(x.cuda(), **{k: v.cuda() if torch.is_tensor(v) else v
                                 for k, v in args.items()}).cpu()
     assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the precoarsening pipeline: K4 at the precoarsened paths' shapes
+# ---------------------------------------------------------------------------
+
+_PRE_SCHEDULES = {"graclus": dict(poolers="graclus", levels=2),
+                  "mixed": dict(poolers=[("ndp", {}), ("graclus", {})]),
+                  "sep": dict(poolers="sep", levels=2),
+                  "nmf": dict(poolers=("nmf", {"k": 8}), levels=2),
+                  "eigen": dict(poolers=[("eigen", {"k": 12}),
+                                         ("eigen", {"k": 4})])}
+
+
+def _pre_graphs(count=16, seed=0, F=8):
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in rng.integers(30, 60, count):
+        up = np.triu(rng.random((n, n)) < 0.12, 1)
+        s, r = np.nonzero(up | up.T)
+        out.append((rng.normal(size=(n, F)).astype(np.float32),
+                    np.stack([s, r]).astype(np.int64)))
+    return out, (np.arange(count) % 3).astype(np.int32)
+
+
+def _pre_step(model, batch, lbs, y):
+    model.zero_grad(set_to_none=True)
+    loss = torch.nn.functional.cross_entropy(model(batch, lbs), y)
+    loss.backward()
+    return loss.detach(), {k: p.grad.detach().clone()
+                           for k, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", sorted(_PRE_SCHEDULES))
+def test_cuda_precoarsened_step_matches_cpu_and_repeats_bit_equal(schedule):
+    """``PrecoarsenedNet`` (hidden 32) on a precoarsened batch: step one's
+    loss and gradients twice on the card give the same bits, agree with
+    the CPU's (loss within 1e-4 relative, each leaf within 1e-3 of its
+    largest |value|), and every sum ran on K4 (no other kernel)."""
+    from examples.pre_coarsening_torch import PrecoarsenedNet, level_modes
+    from tgp_tpu_torch.data.pooled_loader import PooledGraphLoader
+    from tgp_tpu_torch.precoarsen import PreCoarsening
+
+    _skip_without_card()
+    graphs, labels = _pre_graphs()
+    tf = PreCoarsening(**_PRE_SCHEDULES[schedule])
+    pooled = [tf(g) for g in graphs]
+    nets = {}
+    for dev in ("cpu", "cuda"):
+        nets[dev] = PrecoarsenedNet(8, 3, hidden=32,
+                                    level_modes=level_modes(pooled[0]),
+                                    device=dev)
+    nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        b, lbs, y = next(iter(PooledGraphLoader(pooled, labels,
+                                                batch_size=16, device=dev)))
+        y = torch.as_tensor(y, device=dev).long()
+        before = K.sorted_segment_sum.launches
+        runs[dev] = _pre_step(nets[dev], b, lbs, y)
+        if dev == "cuda":
+            assert K.sorted_segment_sum.launches > before
+            again = _pre_step(nets[dev], b, lbs, y)
+            assert torch.equal(again[0], runs[dev][0])
+            assert all(torch.equal(again[1][k], g)
+                       for k, g in runs[dev][1].items())
+    (l_c, g_c), (l_g, g_g) = runs["cpu"], runs["cuda"]
+    assert abs(float(l_g) - float(l_c)) <= 1e-4 * abs(float(l_c))
+    for k, g in g_c.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        assert float((g_g[k].cpu() - g).abs().max()) <= 1e-3 * scale, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias,kw", [("ndp", {}), ("nmf", {"k": 8}),
+                                      ("sep", {}), ("eigen", {"k": 8})])
+def test_cuda_host_pooler_matches_cpu(alias, kw):
+    """A host-side pooler on a batch on the card: the selection and the
+    pooled graph equal the CPU call's, the pooled features within 1e-5 of
+    their largest |value|, a repeat bit-equal."""
+    from tgp_tpu_torch import from_graphs, get_pooler
+
+    _skip_without_card()
+    graphs, _ = _pre_graphs(count=6, seed=1)
+    pooler = get_pooler(alias, **kw)
+    out = {dev: pooler(from_graphs(graphs, device=dev)) for dev in
+           ("cpu", "cuda")}
+    again = pooler(from_graphs(graphs, device="cuda"))
+    assert torch.equal(again.graph.x, out["cuda"].graph.x)
+    for f in ("senders", "receivers", "edge_weight", "node_mask"):
+        assert torch.equal(getattr(out["cuda"].graph, f).cpu(),
+                           getattr(out["cpu"].graph, f))
+    ref = out["cpu"].graph.x
+    assert float((out["cuda"].graph.x.cpu() - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_k4_reduces_a_precoarsened_level_bit_equal():
+    """The cluster sums of a Graclus level of a 20,000-node graph (128
+    f32 wide) on K4 (one launch a call) against the plain version (1e-5
+    of Σ|terms|), the same bits twice."""
+    from tgp_tpu_torch.data.pooled_loader import PooledGraphLoader
+    from tgp_tpu_torch.precoarsen import PreCoarsening
+    from tgp_tpu_torch.reduce.base import reduce_sparse
+
+    _skip_without_card()
+    rng = np.random.default_rng(5)
+    n, e = 20_000, 200_000
+    g = (rng.normal(size=(n, 128)).astype(np.float32),
+         rng.integers(0, n, (2, e)))
+    pooled = PreCoarsening("graclus", levels=1)(g)
+    b, lbs = next(iter(PooledGraphLoader([pooled], batch_size=1,
+                                         device="cpu")))
+    ref = reduce_sparse(b.x, lbs[0].so)
+    scale = reduce_sparse(b.x.abs(), lbs[0].so)
+    card = lbs[0].to("cuda").so
+    before = K.sorted_segment_sum.launches
+    got = reduce_sparse(b.x.cuda(), card)
+    assert K.sorted_segment_sum.launches == before + 1
+    assert torch.equal(reduce_sparse(b.x.cuda(), card), got)
+    assert ((got.cpu() - ref).abs() <= 1e-5 * scale + 1e-30).all()

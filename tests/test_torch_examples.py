@@ -2,8 +2,10 @@
 the accuracy bounds of ``tests/test_examples_smoke.py``'s JAX tests (0.6
 for ``examples/classification.py`` and 0.4 for
 ``examples/classification_pan.py``, two epochs each; 0.5 for
-``examples/classification_aggr_reduce.py``, five epochs), and the
-aggregation example's ``Net`` against the JAX one."""
+``examples/classification_aggr_reduce.py``, five epochs), the
+aggregation example's ``Net`` against the JAX one, and the precoarsening
+twin (each schedule one epoch; its ``PrecoarsenedNet`` against JAX's:
+logits, and step one's loss, gradients and Adam update against optax)."""
 
 import functools
 import re
@@ -20,9 +22,13 @@ from examples.classification_aggr_reduce import Net as JNet
 import examples.classification_aggr_reduce_torch as aggr_ex
 from examples.classification_aggr_reduce_torch import Net as AggrNet
 from examples.classification_pan_torch import main as pan_main
+import examples.pre_coarsening as j_pre
+import examples.pre_coarsening_torch as pre_ex
 from tgp_tpu.data.loaders import GraphLoader as JLoader
 from tgp_tpu.poolers import get_pooler as j_get
+from tgp_tpu.data.pooled_loader import PooledGraphLoader as JPooledLoader
 from tgp_tpu_torch.data.loaders import GraphLoader
+from tgp_tpu_torch.data.pooled_loader import PooledGraphLoader
 from tgp_tpu_torch.datasets import SyntheticGraphClassification
 from tgp_tpu_torch.models.convert import params_from_flax
 
@@ -136,3 +142,75 @@ def test_classification_aggr_reduce_net_matches_jax(aggr):
     for k, g in ref.items():
         scale = max(float(g.abs().max()), 1e-30)
         assert float((got[k] - g).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("schedule", ["graclus", "mixed", "eigen", "sep"])
+def test_pre_coarsening_twin_trains_one_epoch(schedule):
+    acc = pre_ex.main(schedule, epochs=1, verbose=False, device="cpu")
+    assert 0.0 <= acc <= 1.0
+
+
+def test_pre_coarsening_twin_learns_as_jax_test_asks():
+    """``tests/test_examples_smoke.py``'s bound for the JAX example:
+    Graclus, 5 epochs, accuracy above 0.5."""
+    assert pre_ex.main("graclus", epochs=5, verbose=False,
+                       device="cpu") > 0.5
+
+
+@functools.lru_cache(maxsize=None)
+def _precoarsened(schedule):
+    graphs, labels = SyntheticGraphClassification(
+        num_graphs=12, num_features=8, seed=3).generate()
+    tf = pre_ex.schedule_transform(schedule)
+    return [tf(g) for g in graphs], labels
+
+
+@pytest.mark.parametrize("schedule", ["graclus", "mixed", "eigen", "sep",
+                                      "nmf"])
+def test_precoarsened_net_matches_jax(schedule):
+    """``PrecoarsenedNet`` with the flax model's parameters on the same
+    batch: logits within 1e-5 of their largest |value|; step one's loss
+    within 1e-5 relative, every gradient leaf within 1e-4 of its largest
+    |value|, and the weights after one Adam step (lr 1e-3) within 1e-6 of
+    optax's."""
+    pooled, labels = _precoarsened(schedule)
+    jb, jlb, y = next(iter(JPooledLoader(pooled, labels, batch_size=6)))
+    tb, tlb, ty = next(iter(PooledGraphLoader(pooled, labels, batch_size=6,
+                                              device="cpu")))
+    np.testing.assert_array_equal(ty, y)
+    jnet = j_pre.PrecoarsenedNet(num_classes=3, hidden=16)
+    params = jnet.init(jax.random.key(0), jb, jlb)
+    net = pre_ex.PrecoarsenedNet(8, 3, hidden=16,
+                                 level_modes=pre_ex.level_modes(pooled[0]),
+                                 device="cpu")
+    net.load_state_dict(params_from_flax(params))
+
+    def loss_fn(p):
+        logits = jnet.apply(p, jb, jlb)
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits, jnp.asarray(y)).mean(), logits
+
+    (jloss, jlogits), jgrads = jax.value_and_grad(loss_fn,
+                                                  has_aux=True)(params)
+    tx = optax.adam(1e-3)
+    updates, _ = tx.update(jgrads, tx.init(params))
+    jnew = params_from_flax(optax.apply_updates(params, updates))
+
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    logits = net(tb, tlb)
+    loss = torch.nn.functional.cross_entropy(logits,
+                                             torch.as_tensor(y).long())
+    loss.backward()
+    jlogits = np.asarray(jlogits)
+    assert np.abs(logits.detach().numpy() - jlogits).max() <= \
+        1e-5 * np.abs(jlogits).max()
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    ref = params_from_flax(jgrads)
+    got = {k: p.grad.clone() for k, p in net.named_parameters()}
+    assert set(got) == set(ref)
+    for k, g in ref.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        assert float((got[k] - g).abs().max()) <= 1e-4 * scale, k
+    opt.step()
+    for k, p in net.named_parameters():
+        assert float((p.detach() - jnew[k]).abs().max()) <= 1e-6, k

@@ -164,13 +164,32 @@ assert {'tgp_tpu_torch.ops.kernels.bmm', 'tgp_tpu_torch.models.prepare',
         'tgp_tpu_torch.ops.assignment', 'tgp_tpu_torch.select.dp',
         'tgp_tpu_torch.select.maxcut', 'tgp_tpu_torch.poolers.bnpool',
         'tgp_tpu_torch.poolers.maxcut',
-        'tgp_tpu_torch.reduce.aggr'} <= set(mods), mods
+        'tgp_tpu_torch.reduce.aggr', 'tgp_tpu_torch._native',
+        'tgp_tpu_torch.precoarsen.api', 'tgp_tpu_torch.precoarsen.common',
+        'tgp_tpu_torch.precoarsen.graclus', 'tgp_tpu_torch.precoarsen.ndp',
+        'tgp_tpu_torch.precoarsen.sep', 'tgp_tpu_torch.precoarsen.nmf',
+        'tgp_tpu_torch.precoarsen.eigenpool',
+        'tgp_tpu_torch.data.pooled_loader', 'tgp_tpu_torch.reduce.eigenpool',
+        'tgp_tpu_torch.lift.eigenpool', 'tgp_tpu_torch.poolers.host_base',
+        'tgp_tpu_torch.poolers.ndp', 'tgp_tpu_torch.poolers.nmf',
+        'tgp_tpu_torch.poolers.sep', 'tgp_tpu_torch.poolers.eigenpool'
+        } <= set(mods), mods
 import examples.classification_torch
 import examples.classification_pan_torch
 import examples.classification_aggr_reduce_torch
+import examples.pre_coarsening_torch
 from tgp_tpu_torch.reduce.aggr import AggrReduce, get_aggr
+from tgp_tpu_torch.data.pooled_loader import PooledGraphLoader, collate_level
+from tgp_tpu_torch.precoarsen import PreCoarsening, precoarsen_graph
+from tgp_tpu_torch.precoarsen.ndp import ndp_level
+# the host level functions run without scikit-learn (and without a card)
+ring = np.array([[0, 1, 2, 3, 4, 5], [1, 2, 3, 4, 5, 0]])
+for alias, kw in (('graclus', {}), ('ndp', {}), ('sep', {}),
+                  ('nmf', {'k': 3}), ('eigen', {'k': 3})):
+    precoarsen_graph(alias, ring, 6, levels=2, **kw)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tgp_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sklearn',
+                                    'tgp_tpu'))
 assert not bad, bad
 import torch
 assert not torch.cuda.is_available()
@@ -196,7 +215,13 @@ for call in (lambda: tgp_tpu_torch.from_graphs(g),
              lambda: examples.classification_torch.main('sag', epochs=1),
              lambda: tgp_tpu_torch.PoolingClassifier(None, 3, hidden=4),
              lambda: tgp_tpu_torch.DenseTopkClassifier(3, hidden=4),
-             lambda: plan_locality_spmm(g[0][1], 3)):
+             lambda: plan_locality_spmm(g[0][1], 3),
+             lambda: PooledGraphLoader([PreCoarsening('graclus')(g[0])]),
+             lambda: collate_level([precoarsen_graph('graclus', g[0][1], 3)[0]],
+                                   np.zeros(1), 3, 8, 128, 2),
+             lambda: ndp_level(g[0][1], 3, eigensolver='lobpcg'),
+             lambda: examples.pre_coarsening_torch.PrecoarsenedNet(2, 3),
+             lambda: examples.pre_coarsening_torch.main('graclus', epochs=1)):
     try:
         call()
     except RuntimeError as e:

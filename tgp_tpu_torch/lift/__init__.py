@@ -1,4 +1,5 @@
 """Lift operators."""
 from tgp_tpu_torch.lift.base import base_lift, lift_dense_unbatched, lift_sparse
+from tgp_tpu_torch.lift.eigenpool import eigenpool_lift
 
-__all__ = ["base_lift", "lift_sparse", "lift_dense_unbatched"]
+__all__ = ["base_lift", "lift_sparse", "lift_dense_unbatched", "eigenpool_lift"]

@@ -1,9 +1,10 @@
 """Carry flax weights of ``tgp_tpu``'s ``PoolingClassifier`` (with the
 top-k, SAG, ASAP, PAN, edge-contraction, k-MIS, MaxCut, a dense
 soft-cluster pooler or BNPool, or one without parameters), ``DenseTopkClassifier``, the
-``PANNet`` of ``examples/classification_pan.py``, an ``AggrReduce`` and
-the ``Net`` of ``examples/classification_aggr_reduce.py`` over to the
-port's modules, so both packages compute the same function.  A flax gradient
+``PANNet`` of ``examples/classification_pan.py``, an ``AggrReduce``, the
+``Net`` of ``examples/classification_aggr_reduce.py`` and the
+``PrecoarsenedNet`` of ``examples/pre_coarsening.py`` over to the port's
+modules, so both packages compute the same function.  A flax gradient
 tree has the same paths and maps the same way, so gradients compare leaf
 by leaf."""
 
@@ -17,13 +18,13 @@ import torch
 
 __all__ = ["params_from_flax"]
 
-#: the PANNet's and the aggregation Net's flax module names → the port's
+#: the PANNet's, the aggregation Net's and the PrecoarsenedNet's flax
+#: module names → the port's (``GCNConv_<i>``, i ≥ 1, → ``conv_<i>``)
 _MODULES = {"PANConv_0": "pan_conv", "PANPooling_0": "pooler",
-            "GCNConv_0": "conv", "GCNConv_1": "conv_1",
-            "AggrReduce_0": "aggr_reduce"}
+            "GCNConv_0": "conv", "AggrReduce_0": "aggr_reduce"}
 
 #: a layer inside a pooler (SAG's scorer, ASAP's layers) or a conv
-_LAYER = r"((?:pooler|pan_conv|conv|conv_1)(?:/\w+)?)"
+_LAYER = r"((?:pooler|pan_conv|conv|conv_\d+)(?:/\w+)?)"
 
 #: an aggregation module of ``reduce/aggr.py`` in an ``AggrReduce`` (alone,
 #: or the Net's), named by its class or, when the module was passed in, by
@@ -154,9 +155,9 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a flax ``PoolingClassifier``, ``DenseTopkClassifier``,
-    ``PANNet``, ``AggrReduce`` or aggregation ``Net`` parameter (or
-    gradient) tree (``{"params": ...}`` or its inner dict; leaves as numpy
-    or JAX arrays) onto a ``state_dict`` of the port's module of the same
+    ``PANNet``, ``AggrReduce``, aggregation ``Net`` or ``PrecoarsenedNet``
+    parameter (or gradient) tree (``{"params": ...}`` or its inner dict;
+    leaves as numpy or JAX arrays) onto a ``state_dict`` of the port's module of the same
     name.  Dense kernels (``[in, out]``) are transposed for ``nn.Linear``,
     attention kernels flattened over their heads, and an LSTM's or GRU's
     gate leaves stacked in torch's gate order.  Raises on a leaf it
@@ -167,7 +168,9 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for path, leaf in _flatten(tree):
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
         head, _, rest = path.partition("/")
-        path = "/".join(filter(None, (_MODULES.get(head, head), rest)))
+        head = _MODULES.get(head, re.sub(r"^GCNConv_(\d+)$", r"conv_\1",
+                                         head))
+        path = "/".join(filter(None, (head, rest)))
         m = re.fullmatch(_GATE, path)
         if m:
             _place_gate(m, arr, gates)

@@ -3,8 +3,9 @@
 ``"sag"``, ``"asap"`` and ``"pan"``, the clustering poolers ``"ec"``,
 ``"graclus"``, ``"kmis"`` and ``"nopool"``, LaPool (``"lap"``) and the
 dense soft-cluster poolers ``"mincut"``, ``"diff"``, ``"dmon"``,
-``"hosc"``, ``"jb"``, ``"acc"`` and ``"bnpool"``, and MaxCut
-(``"maxcut"``) are ported so far.
+``"hosc"``, ``"jb"``, ``"acc"`` and ``"bnpool"``, MaxCut (``"maxcut"``),
+and the host-side poolers ``"ndp"``, ``"nmf"``, ``"sep"`` and ``"eigen"``:
+all 21 of JAX's aliases.
 
 ``get_pooler(alias, **kwargs)`` drops kwargs the pooler's constructor
 does not take, translates the reference spellings ``lift=`` and
@@ -17,7 +18,7 @@ through it), :func:`unregister_pooler` removes one.
 from __future__ import annotations
 
 import inspect
-from typing import Dict, Type
+from typing import Dict
 
 from tgp_tpu_torch.poolers.asap import ASAPooling
 from tgp_tpu_torch.poolers.asym_cheeger_cut import AsymCheegerCutPooling
@@ -26,18 +27,22 @@ from tgp_tpu_torch.poolers.dense_base import DenseClusterPooling
 from tgp_tpu_torch.poolers.diffpool import DiffPool
 from tgp_tpu_torch.poolers.dmon import DMoNPooling
 from tgp_tpu_torch.poolers.edge_contraction import EdgeContractionPooling
+from tgp_tpu_torch.poolers.eigenpool import EigenPooling
 from tgp_tpu_torch.poolers.graclus import GraclusPooling
 from tgp_tpu_torch.poolers.hosc import HOSCPooling
+from tgp_tpu_torch.poolers.host_base import HostPooling
 from tgp_tpu_torch.poolers.just_balance import JustBalancePooling
 from tgp_tpu_torch.poolers.kmis import KMISPooling
 from tgp_tpu_torch.poolers.lapool import LaPooling
 from tgp_tpu_torch.poolers.maxcut import MaxCutPooling
 from tgp_tpu_torch.poolers.mincut import MinCutPooling
+from tgp_tpu_torch.poolers.ndp import NDPPooling
+from tgp_tpu_torch.poolers.nmf import NMFPooling
 from tgp_tpu_torch.poolers.nopool import NoPool
 from tgp_tpu_torch.poolers.pan import PANPooling
 from tgp_tpu_torch.poolers.sag import SAGPooling
+from tgp_tpu_torch.poolers.sep import SEPPooling
 from tgp_tpu_torch.poolers.topk import TopkPooling
-from tgp_tpu_torch.src import SRCPooling
 
 __all__ = ["get_pooler", "pooler_map", "pooler_signature",
            "register_pooler", "unregister_pooler", "TopkPooling",
@@ -45,9 +50,10 @@ __all__ = ["get_pooler", "pooler_map", "pooler_signature",
            "EdgeContractionPooling", "GraclusPooling", "KMISPooling",
            "NoPool", "LaPooling", "DenseClusterPooling", "MinCutPooling",
            "DiffPool", "DMoNPooling", "HOSCPooling", "JustBalancePooling",
-           "AsymCheegerCutPooling", "BNPool", "MaxCutPooling"]
+           "AsymCheegerCutPooling", "BNPool", "MaxCutPooling", "HostPooling",
+           "NDPPooling", "NMFPooling", "SEPPooling", "EigenPooling"]
 
-_REGISTRY: Dict[str, Type[SRCPooling]] = {}
+_REGISTRY: Dict[str, type] = {}
 
 
 def register_pooler(alias: str, cls=None):
@@ -74,11 +80,12 @@ for _alias, _cls in (
         ("nopool", NoPool), ("lap", LaPooling), ("mincut", MinCutPooling),
         ("diff", DiffPool), ("dmon", DMoNPooling), ("hosc", HOSCPooling),
         ("jb", JustBalancePooling), ("acc", AsymCheegerCutPooling),
-        ("bnpool", BNPool), ("maxcut", MaxCutPooling)):
+        ("bnpool", BNPool), ("maxcut", MaxCutPooling), ("ndp", NDPPooling),
+        ("nmf", NMFPooling), ("sep", SEPPooling), ("eigen", EigenPooling)):
     register_pooler(_alias, _cls)
 
 
-def pooler_map() -> Dict[str, Type[SRCPooling]]:
+def pooler_map() -> Dict[str, type]:
     return dict(_REGISTRY)
 
 
@@ -100,7 +107,7 @@ def pooler_signature(cls) -> Dict[str, object]:
     return out
 
 
-def get_pooler(alias: str, **kwargs) -> SRCPooling:
+def get_pooler(alias: str, **kwargs):
     """Instantiate a pooler by alias with signature-filtered kwargs
     (``device=`` and ``generator=`` pass through to the pooler)."""
     name = alias

@@ -47,6 +47,8 @@ class ASAPooling(SRCPooling):
     training mode, drawing from ``dropout_generator`` (on the pooler's
     device; None draws from torch's default generator)."""
 
+    IS_TRAINABLE = True
+
     def __init__(self, in_channels: int, ratio: Union[int, float] = 0.5,
                  dropout: float = 0.0, negative_slope: float = 0.2,
                  nonlinearity: Union[str, Callable, None] = "sigmoid",

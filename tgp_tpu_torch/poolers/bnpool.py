@@ -58,6 +58,9 @@ class BNPool(DenseSRCPooling):
     graph (unbatched).  ``per_node_keys`` is not ported (DPSelect
     raises)."""
 
+    IS_TRAINABLE = True
+    HAS_LOSS = True
+
     def __init__(self, in_channels: Union[int, List[int], None] = None,
                  k: int = 8, alpha_DP: float = 1.0, K_var: float = 1.0,
                  K_mu: float = 10.0, K_init: float = 1.0, eta: float = 1.0,

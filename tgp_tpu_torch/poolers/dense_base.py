@@ -43,6 +43,9 @@ class DenseClusterPooling(DenseSRCPooling):
     defines the two loss hooks.  ``generator`` draws the selector's
     weights, ``dropout_generator`` its dropout."""
 
+    IS_TRAINABLE = True
+    HAS_LOSS = True
+
     def __init__(self, in_channels: Union[int, List[int], None] = None,
                  k: int = 8, act: Optional[str] = None, dropout: float = 0.0,
                  remove_self_loops: bool = True, degree_norm: bool = True,

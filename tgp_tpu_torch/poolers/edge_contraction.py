@@ -27,6 +27,8 @@ class EdgeContractionPooling(SRCPooling):
     ``dropout_generator`` in training mode; the connect flags are
     :class:`~tgp_tpu_torch.connect.base.ConnectConfig`'s."""
 
+    IS_TRAINABLE = True
+
     def __init__(self, in_channels: int, edge_score_method: str = "softmax",
                  dropout: float = 0.0, add_to_edge_score: float = 0.5,
                  s_inv_op: str = "transpose", connect_red_op: str = "sum",

@@ -23,6 +23,8 @@ class GraclusPooling(SRCPooling):
     order).  JAX's ``reduce_red_op`` field, which its pooler never reads,
     is not ported."""
 
+    IS_PRECOARSENABLE = True
+
     def __init__(self, weighted: bool = True, s_inv_op: str = "transpose",
                  connect_red_op: str = "sum", remove_self_loops: bool = True,
                  degree_norm: bool = False, edge_weight_norm: bool = False,

@@ -27,6 +27,9 @@ class KMISPooling(SRCPooling):
     :class:`~tgp_tpu_torch.select.kmis.KMISSelect`'s and the connect
     flags."""
 
+    IS_TRAINABLE = True
+    IS_PRECOARSENABLE = True
+
     def __init__(self, in_channels: Optional[int] = None, order_k: int = 1,
                  scorer: str = "linear",
                  score_heuristic: Optional[str] = "greedy",

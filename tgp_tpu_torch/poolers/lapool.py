@@ -32,6 +32,7 @@ class LaPooling(DenseSRCPooling):
     host's shortest-path weights the second time; ``sparse_output``
     returns the pooled graph as a block-diagonal sparse batch."""
 
+    IS_TRAINABLE = False
     ACCEPTS_DENSE_BATCH = False
 
     def __init__(self, shortest_path_reg: bool = False,

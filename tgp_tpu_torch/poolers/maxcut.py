@@ -28,6 +28,9 @@ class MaxCutPooling(SRCPooling):
     propagation and of the vote (``"auto"``, ``"dense"``, ``"sparse"``).
     ``generator`` draws the score net's weights."""
 
+    IS_TRAINABLE = True
+    HAS_LOSS = True
+
     def __init__(self, in_channels: int = 0, ratio: Union[int, float] = 0.5,
                  loss_coeff: float = 1.0, assign_all_nodes: bool = True,
                  max_iter: int = 5, mp_units: Sequence[int] = _DEFAULT_MP,

@@ -31,6 +31,8 @@ def identity_select(batch: GraphBatch) -> SelectOutput:
 class NoPool(SRCPooling):
     """``"nopool"``."""
 
+    IS_PRECOARSENABLE = True
+
     def forward(self, batch: GraphBatch, *, so: Optional[SelectOutput] = None,
                 lifting: bool = False, x: Optional[torch.Tensor] = None):
         if lifting:

@@ -33,6 +33,8 @@ class PANPooling(SRCPooling):
     ``return_dense_met``) pools the full MET matrix exactly
     (:meth:`_exact_met_connect`), with no long-range entry dropped."""
 
+    IS_TRAINABLE = True
+
     def __init__(self, in_channels: int, ratio: Union[int, float] = 0.5,
                  min_score: Optional[float] = None, multiplier: float = 1.0,
                  nonlinearity: Union[str, Callable, None] = "tanh",

@@ -44,6 +44,8 @@ class SAGPooling(SRCPooling):
     :class:`~tgp_tpu_torch.poolers.topk.TopkPooling`'s.  ``use_kernel``
     reaches the GraphConv and GCN scorers (their ``use_kernel``)."""
 
+    IS_TRAINABLE = True
+
     def __init__(self, in_channels: int, ratio: Union[int, float] = 0.5,
                  min_score: Optional[float] = None, multiplier: float = 1.0,
                  nonlinearity: Union[str, Callable, None] = "tanh",

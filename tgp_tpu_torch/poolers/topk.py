@@ -116,6 +116,7 @@ class TopkPooling(SRCPooling):
     parameters, pooled by :func:`dense_topk_apply` (``pool_impl``) and
     post-processed like the sparse pooled adjacency."""
 
+    IS_TRAINABLE = True
     ACCEPTS_DENSE_BATCH = True
 
     def __init__(self, in_channels: Optional[int] = None,

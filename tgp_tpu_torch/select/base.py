@@ -16,7 +16,8 @@
   a multi-graph sparse batch, each node's row over its own graph's ``K``
   supernode slots; ``s`` returns it.  It also carries the batch's
   ``node_pos`` and ``max_nodes``, which the per-graph products of reduce,
-  connect and lift read.
+  connect and lift read.  EigenPool's precoarsened levels hold their
+  ``[N, H·K]`` operator Θ there, with ``num_modes`` H.
 
 :func:`cluster_to_select_output` builds the sparse layout from a
 cluster vector; :func:`compact_select_output` repacks a total
@@ -70,6 +71,8 @@ class SelectOutput:
     cluster_mask: Optional[Tensor] = None
     # --- unbatched dense soft assignment ---
     assignment: Optional[Tensor] = None  # [N,K]
+    #: EigenPool's eigenvector modes H (its ``assignment`` is Θ, ``[N, H·K]``)
+    num_modes: int = 0
     # --- batched dense soft assignment ---
     batched_s: Optional[Tensor] = None  # [B,N,K]
 

@@ -1,5 +1,5 @@
 """SRC(L) core (port of ``tgp_tpu/src.py``: ``PoolingOutput``,
-``SRCPooling`` and ``DenseSRCPooling``)."""
+``SRCPooling``, ``DenseSRCPooling`` and ``PrecoarseningMixin``)."""
 
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ from tgp_tpu_torch.lift.base import base_lift
 from tgp_tpu_torch.reduce.base import base_reduce
 from tgp_tpu_torch.select.base import SelectOutput
 
-__all__ = ["PoolingOutput", "SRCPooling", "DenseSRCPooling"]
+__all__ = ["PoolingOutput", "SRCPooling", "DenseSRCPooling",
+           "PrecoarseningMixin"]
 
 Tensor = torch.Tensor
 
@@ -53,9 +54,20 @@ class PoolingOutput:
 class SRCPooling(nn.Module):
     """Base class for sparse-world poolers: the shared Reduce / Connect /
     Lift plumbing.  ``lift_op``/``lift_red_op`` configure the lift.
+
+    Capability flags are plain class attributes, which a subclass
+    overrides with a bare assignment (JAX's values, read by the
+    cheatsheet): ``IS_DENSE``, ``HAS_LOSS`` (auxiliary losses),
+    ``IS_TRAINABLE``, ``IS_PRECOARSENABLE`` (a feature-independent
+    selection that can run offline), ``SUPPORTS_SPARSE_OUT``, and
     ``ACCEPTS_DENSE_BATCH``: the pooler's ``forward`` takes a
     :class:`DenseGraphBatch` (the gate of ``prepare_batch``)."""
 
+    IS_DENSE = False
+    HAS_LOSS = False
+    IS_TRAINABLE = False
+    IS_PRECOARSENABLE = False
+    SUPPORTS_SPARSE_OUT = True
     ACCEPTS_DENSE_BATCH = False
 
     def __init__(self, lift_op: str = "precomputed",
@@ -103,6 +115,7 @@ class DenseSRCPooling(SRCPooling):
     their dense pooled graph back as a block-diagonal sparse batch
     (:meth:`finalize_sparse_output`)."""
 
+    IS_DENSE = True
     ACCEPTS_DENSE_BATCH = True
 
     @staticmethod
@@ -122,3 +135,26 @@ class DenseSRCPooling(SRCPooling):
         """Dense pooled ``[B, K, K]`` → block-diagonal sparse batch
         (invalid supernodes masked, not dropped)."""
         return from_dense(dense)
+
+
+class PrecoarseningMixin:
+    """Protocol of poolers whose selection is feature-independent and
+    has no parameters, so it can run offline on the host (port of
+    ``tgp_tpu.src.PrecoarseningMixin``): ``precoarsen_graph`` makes one
+    level dict in numpy; :meth:`multi_level_precoarsen` rolls levels out
+    greedily."""
+
+    def precoarsen_graph(self, edge_index, num_nodes, edge_weight=None):
+        raise NotImplementedError
+
+    def multi_level_precoarsen(self, edge_index, num_nodes, edge_weight=None,
+                               levels: int = 1):
+        """Greedy rollout: each level's pooled graph feeds the next."""
+        out = []
+        for _ in range(levels):
+            lvl = self.precoarsen_graph(edge_index, num_nodes, edge_weight)
+            out.append(lvl)
+            edge_index = lvl["edge_index"]
+            edge_weight = lvl.get("edge_weight")
+            num_nodes = lvl["num_clusters"]
+        return out
