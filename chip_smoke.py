@@ -157,7 +157,27 @@ each of which raises on failure:
    ``plan_locality_spmm`` (RCM) and ``locality_spmm`` with the banded
    engine (K5) and the default one (K2), ``spmm_sorted`` (K4) and
    ``sddmm_banded`` (K6) on the same plan, each held against the plain
-   product of the graph in its own order.
+   product of the graph in its own order;
+16. GTVConv, the clustering and autoencoder models, the datasets and the
+   checkpoints: two K1 ``[kernels]`` rows at GTVConv's CSR route on the
+   serving request (F = 32 f32: the forward over the transpose layout,
+   the backward's ``d_h`` with ``d_w``'s time beside it);
+   ``[cluster_examples]`` runs the clustering (``mincut``, ``mincut_u``),
+   TVGNN and node-classification (``topk``) twins at their JAX defaults
+   on the card and on the CPU and fails under the JAX smoke tests' bounds
+   (NMI 0.5, accuracy 0.6); ``[train_cluster_mincut]`` and
+   ``[train_tvgnn]`` train ``ClusteringModel`` (MinCut; GTVConv +
+   AsymCheegerCut) 5 steps on a CSBM at Cora's size (generic routes, K4
+   7 and 9 a step); ``[train_tvgnn_large]`` (GTVConv's CSR route,
+   ``acc_u``: K1 6 and K4 14 a step) and ``[train_node_class_large]``
+   (``PoolLiftNodeClassifier`` with top-k: K1 7 a step) on the serving
+   graph; each with step one repeated bit for bit and held to the CPU
+   (the node classifier on the card's replayed top-k selection), the
+   step median, busy time and idle share; ``[checkpoint]`` saves the
+   trained TVGNN model, restores it into a fresh one (``s`` bit-equal)
+   and holds a ``PrecoarsenCache`` hit to the cold levels; ``[train_tu]``
+   trains the classification twin one epoch on the ``PROTEINS_SYN``
+   fixture through its ``load_dataset``.
 
 Every training phase first runs step one twice from the same weights,
 batch and generator states and fails unless the loss and every gradient
@@ -290,9 +310,10 @@ DENSE_FAMILY = ("mincut", "diff", "dmon", "hosc", "jb", "acc")
 MINCUT_K, MINCUT_STEPS = 16, 5
 # BNPool (K = 16, f32, CE + quality + kl + K_prior) the same, its Beta
 # draws and "_u"'s negatives from the pooler's sample generator; the "_u"
-# modes' sparse pre-pool GCN, losses and gathers add on K4
+# modes' sparse pre-pool GCN, losses and gathers add on K4 (MinCut's
+# sparse loss gathers S at both ends of every edge: two gradients)
 SOFT_LAUNCHES = {"mincut": {"bmm": 5},
-                 "mincut_u": {"bmm": 3, "sorted_segment_sum": 10},
+                 "mincut_u": {"bmm": 3, "sorted_segment_sum": 12},
                  "bnpool": {"bmm": 5},
                  "bnpool_u": {"bmm": 3, "sorted_segment_sum": 11}}
 SOFT_LOSSES = {"mincut": {"cut_loss", "ortho_loss"},
@@ -377,6 +398,36 @@ PRE_K4_PER_STEP = {"graclus": 12, "mixed": 11, "sep": 12, "nmf": 10,
 # largest |value| (other sum orders of f32 products)
 HOST_POOLERS = {"ndp": {}, "nmf": {"k": 8}, "sep": {}, "eigen": {"k": 8}}
 HOST_POOL_TOL = 1e-4
+# the clustering, TVGNN and node-classification slice: the twins at their
+# JAX defaults against the JAX smoke tests' bounds (NMI, test accuracy)
+NMI_BOUND, ACC_BOUND = 0.5, 0.6
+# a CSBM at Cora's size (2,708 nodes, 7 classes, 1,433 features), degree
+# (~3.9) and homophily (~0.8): ~10.6k directed edges
+CORA = dict(num_graphs=1, num_nodes=2708, num_communities=7,
+            feature_dim=1433, p_in=0.0082, p_out=0.00032,
+            require_connected=False, seed=0)
+CORA_K = 7
+# ClusteringModel / PoolLiftNodeClassifier width, Adam steps a phase, the
+# serving graph's clusters (acc_u) and node classes
+CLUSTER_HIDDEN, CLUSTER_TRAIN_STEPS, CLUSTER_SEED = 32, 5, 0
+LARGE_K, NODE_CLASSES = 4, 4
+# launches a step.  On the Cora-sized graph (below PALLAS_MIN_EDGES) only
+# K4: the generic GCN's degree and aggregation forward and its message
+# gather's gradient a layer, and to_dense (MinCut: 2·2 + 2 + 1); GTVConv's
+# generic route, its degree and Γh forward and its two gathers' gradients
+# a layer, and to_dense (TVGNN: 2·2 + 2·2 + 1).  On the serving graph
+# GTVConv's CSR route runs K1 twice forward (the degree and Γh) and once
+# backward (d_h) a layer, K4 its two γ gathers' gradients a layer, and
+# acc_u's sums K4 ten times (its connect's SpMM, the total variation, the
+# quantile and the balance, and their gathers' gradients); the node
+# classifier's three GCNs run K1 forward and backward, the masked pooled
+# graph's one more for its degree, and top-k's masked pool and lift no sum
+CLUSTER_PHASES = ("cluster_mincut", "tvgnn", "tvgnn_large",
+                  "node_class_large")
+CLUSTER_LAUNCHES = {"cluster_mincut": {"sorted_segment_sum": 7},
+                    "tvgnn": {"sorted_segment_sum": 9},
+                    "tvgnn_large": {"spmm_csr": 6, "sorted_segment_sum": 14},
+                    "node_class_large": {"spmm_csr": 7}}
 
 
 def request_graph(seed: int):
@@ -3012,6 +3063,367 @@ def phase_locality(card, graphs):
     return result
 
 
+# ---------------------------------------------------------------------------
+# the clustering, TVGNN and node-classification slice: GTVConv, the
+# clustering and autoencoder models, their example twins, the datasets
+# and the checkpoints
+# ---------------------------------------------------------------------------
+
+
+def cora_graph():
+    """A CSBM at Cora's size, degree and homophily (``CORA``): ``(x [N,
+    1433], edge_index, communities)``, about 10.6k directed edges."""
+    from tgp_tpu_torch.datasets import CSBMDataset
+
+    return CSBMDataset(**CORA)[0]
+
+
+def _cluster_setup(which, device):
+    """``(model, batch, loss_fn, lr)`` of a new training phase on
+    ``device``: the example twins' ``build_model`` and Adam rates, seeded
+    ``CLUSTER_SEED``; ``loss_fn(model, batch)`` is the step's loss (the
+    pooler's losses, plus masked cross-entropy for node
+    classification)."""
+    import examples.clustering_torch as cl
+    import examples.clustering_tvgnn_torch as tv
+    import examples.node_class_torch as nc
+    from tgp_tpu_torch import from_graphs
+
+    if which in ("cluster_mincut", "tvgnn"):
+        x, ei, _ = cora_graph()
+        batch = from_graphs([(x, ei)], device=device)
+        if which == "cluster_mincut":
+            model = cl.build_model("mincut", CLUSTER_HIDDEN, x.shape[1],
+                                   k=CORA_K, device=device,
+                                   seed=CLUSTER_SEED)
+            lr = 5e-4
+        else:
+            model = tv.build_model(CLUSTER_HIDDEN, x.shape[1], k=CORA_K,
+                                   device=device, seed=CLUSTER_SEED)
+            lr = 1e-3
+    else:
+        x, ei = request_graph(7)
+        batch = from_graphs([(x, ei)], sort_edges=True, device=device)
+        if which == "tvgnn_large":
+            model = tv.build_model(CLUSTER_HIDDEN, FEATURES, k=LARGE_K,
+                                   device=device, seed=CLUSTER_SEED,
+                                   alias="acc_u")
+            lr = 1e-3
+        else:
+            model = nc.build_model("topk", NODE_CLASSES, CLUSTER_HIDDEN,
+                                   FEATURES, device=device,
+                                   seed=CLUSTER_SEED)
+            lr = 5e-3
+    if which != "node_class_large":
+        return model, batch, lambda m, b: m(b)[1].loss_sum(), lr
+    rng = np.random.default_rng(CLUSTER_SEED)
+    n = x.shape[0]
+    y = torch.as_tensor(rng.integers(0, NODE_CLASSES, n), device=device)
+    train = torch.as_tensor(rng.random(n) < 0.5, device=device)
+
+    def loss_fn(m, b):
+        logits, out = m(b)
+        return nc.masked_ce(logits[:n], y, train) + out.loss_sum()
+
+    return model, batch, loss_fn, lr
+
+
+def _loss_and_grads(model, batch, loss_fn):
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, batch)
+    loss.backward()
+    return loss.detach(), {k: v.grad.detach().float().clone()
+                           for k, v in model.named_parameters()}
+
+
+def phase_train_cluster(card, which, profile: bool):
+    """CLUSTER_TRAIN_STEPS Adam steps (f32) of a model of this slice:
+    ``"cluster_mincut"`` (``ClusteringModel``, GCN, MinCut, k = 7) and
+    ``"tvgnn"`` (GTVConv, AsymCheegerCut, k = 7) on the Cora-sized CSBM
+    (below PALLAS_MIN_EDGES: no K1, the fixed-order sums on K4);
+    ``"tvgnn_large"`` (GTVConv's CSR route, ``acc_u``, k = 4) and
+    ``"node_class_large"`` (``PoolLiftNodeClassifier`` with top-k, 4
+    classes, half the nodes labelled) on the serving graph collated with
+    ``sort_edges=True`` (K1).  Step one is repeated bit for bit and held
+    against the CPU (node classification on the card's replayed top-k
+    selection); the launches a step are ``CLUSTER_LAUNCHES[which]``; the
+    step median, the busy time of a step and the idle share."""
+    tag = f"train_{which}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, batch, loss_fn, lr = _cluster_setup(which, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    topk = which == "node_class_large"
+    repeat = step_one_repeats(
+        tag, lambda: _loss_and_grads(model, batch, loss_fn))
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    reset_counts()
+    step_ms, losses, per_step, sels = [], [], [], []
+    for i in range(CLUSTER_TRAIN_STEPS):
+        before = read_counts()
+        if i == 0:  # step one keeps its gradients for the CPU check
+            def first():
+                with pinned_selection(record=sels, topk=topk):
+                    out = _loss_and_grads(model, batch, loss_fn)
+                opt.step()
+                return out
+
+            ms, (loss, grads0) = _timed_step(first)
+            loss0 = float(loss)
+            grads0 = {k: v.cpu() for k, v in grads0.items()}
+        else:
+            ms, loss = _timed_step(step)
+        step_ms.append(ms)
+        losses.append(float(loss))
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+    launches = read_counts()
+    want = CLUSTER_LAUNCHES[which]
+    if per_step != [want] * CLUSTER_TRAIN_STEPS:
+        raise AssertionError(f"{tag}: launches a step {per_step}, want "
+                             f"{want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: non-finite losses {losses}")
+
+    cpu, cpu_batch, cpu_loss_fn, _ = _cluster_setup(which, "cpu")
+    cpu.load_state_dict(init)
+    t0 = time.perf_counter()
+    with pinned_selection(replay=sels, topk=topk):
+        cpu_loss, cpu_grads = _loss_and_grads(cpu, cpu_batch, cpu_loss_fn)
+    cpu_s = time.perf_counter() - t0
+    cpu_loss = float(cpu_loss)
+    loss_err, grad_err = _step_one_errors(f"{tag} step one", loss0, grads0,
+                                          cpu_loss, cpu_grads)
+    med = statistics.median(step_ms)
+    busy = _idle_profile(step, 3, med, tag, table=profile)
+    n_edges = int(batch.edge_mask.sum())
+    result = dict(
+        card=card, nodes=int(batch.node_mask.sum()), edges=n_edges,
+        edge_slots=batch.num_edges, features=batch.num_features,
+        hidden=CLUSTER_HIDDEN, steps=CLUSTER_TRAIN_STEPS, setup_s=setup_s,
+        step_ms=step_ms, step_ms_median=med,
+        busy_ms_per_step=busy["busy_ms_per_step"],
+        idle_share=busy["idle_share"], losses=losses, launches=launches,
+        launches_per_step=per_step[0], step1_loss=loss0,
+        step1_cpu_loss=cpu_loss, loss_rel_err=loss_err,
+        loss_rel_tol=LOSS_REL_TOL, grad_rel_err=grad_err,
+        grad_rel_tol=GRAD_REL_TOL, cpu_check_s=cpu_s,
+        step1_repeat_bit_equal=repeat,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[{tag}] {json.dumps(result)}", flush=True)
+    return result, model, batch
+
+
+def phase_cluster_examples(card):
+    """Each twin's ``main`` at the JAX example's defaults, on the card and
+    on the CPU: clustering with ``mincut`` and ``mincut_u`` (150 epochs),
+    TVGNN (200) and node classification with ``topk`` (100); the NMI or
+    test accuracy against the JAX smoke tests' bounds (NMI > 0.5, accuracy
+    > 0.6), which the card's run must pass.  Kernel launches counted."""
+    from examples.clustering_torch import main as cluster
+    from examples.clustering_tvgnn_torch import main as tvgnn
+    from examples.node_class_torch import main as node_class
+
+    runs = (("clustering", "mincut", lambda d: cluster("mincut", verbose=False,
+                                                       device=d), "nmi"),
+            ("clustering", "mincut_u",
+             lambda d: cluster("mincut_u", verbose=False, device=d), "nmi"),
+            ("clustering_tvgnn", "acc", lambda d: tvgnn(verbose=False,
+                                                        device=d), "nmi"),
+            ("node_class", "topk", lambda d: node_class("topk", verbose=False,
+                                                        device=d), "acc"))
+    reset_counts()
+    rows = []
+    for example, alias, run, metric in runs:
+        before = read_counts()
+        t0 = time.perf_counter()
+        got = run("cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        after = read_counts()
+        t0 = time.perf_counter()
+        cpu = run("cpu")
+        bound = NMI_BOUND if metric == "nmi" else ACC_BOUND
+        row = dict(example=example, alias=alias, metric=metric, card=got,
+                   cpu=cpu, jax_test_bound=bound, card_s=card_s,
+                   cpu_s=time.perf_counter() - t0,
+                   launches={k: after[k] - before[k] for k in after
+                             if after[k] != before[k]})
+        print(f"[cluster_examples] {json.dumps(row)}", flush=True)
+        if not got > bound:
+            raise AssertionError(f"{example} {alias}: {metric} {got} on the "
+                                 f"card, not above the JAX test's {bound}")
+        rows.append(row)
+    return dict(card=card, rows=rows, launches=read_counts())
+
+
+def phase_kernels_gtv(batch):
+    """K1 at GTVConv's CSR route on the serving graph (F = CLUSTER_HIDDEN,
+    f32): the forward over the collator's sender-sorted transpose layout
+    with γ as weights (``out[s] = Σ γ_e h[r_e]``), and the backward's K1
+    pass over the receiver-sorted layout (``d_h``) with ``d_w``'s
+    gathered dot product beside it (``d_w_ms``, held to the plain
+    autograd's ``d_w``); each beside ``torch.sparse.mm`` over the same
+    layout, run twice and required bit-equal."""
+    from tgp_tpu_torch.mp.gtvconv import _gamma
+    from tgp_tpu_torch.ops.kernels import segment_spmm as K
+
+    N, E, F = batch.num_nodes, batch.num_edges, CLUSTER_HIDDEN
+    rows = batch.row_ptr.shape[0] - 1
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    h = torch.randn(N, F, generator=gen, device="cuda")
+    s_t, r_t = batch.senders_t, batch.receivers_t
+    gamma_t = _gamma(h[s_t.long()], h[r_t.long()],
+                     batch.edge_weight_t.float(), 1e-3).contiguous()
+    w = torch.where(batch.edge_mask, batch.edge_weight, 0.0).float()
+    gamma = _gamma(h[batch.senders.long()], h[batch.receivers.long()], w,
+                   1e-3).contiguous()
+    csr_bytes = 4 * (2 * E + rows + 1)
+    modes = {}
+    a_t = torch.sparse_csr_tensor(batch.row_ptr_t, r_t, gamma_t,
+                                  size=(rows, N), check_invariants=False)
+    name = f"K1 spmm_csr GTV forward F={F} float32"
+    modes[name] = check_mode(
+        name, lambda: K.spmm_csr(h, gamma_t, None, r_t, None,
+                                 batch.row_ptr_t, None, None, None, N),
+        lambda: K.spmm_csr_plain(h, gamma_t, r_t, batch.row_ptr_t, N),
+        lambda: torch.sparse.mm(a_t, h), rel_tol=REL_TOL,
+        bound_bytes=csr_bytes + 2 * N * F * 4, flops=2 * E * F,
+        peak=FP32_FLOPS_PER_S,
+        scale=K.spmm_csr_plain(h.abs(), gamma_t.abs(), r_t,
+                               batch.row_ptr_t, N),
+        flush=flush, gather_bytes=E * F * 4, twice=True)
+
+    # the backward: d_h = Γᵀg over the receiver-sorted layout (K1), d_w =
+    # ⟨h[r_t], g[s_t]⟩ (the wrapper's gathered dot product)
+    g = torch.randn(N, F, generator=gen, device="cuda")
+    layout = (r_t, s_t, batch.row_ptr_t, batch.senders, None, batch.row_ptr,
+              N)
+    hw = h.clone().requires_grad_(True)
+    gw = gamma_t.clone().requires_grad_(True)
+    K.spmm_csr(hw, gw, gamma, *layout).backward(g)
+    hp = h.clone().requires_grad_(True)
+    gp = gamma_t.clone().requires_grad_(True)
+    K.spmm_csr_plain(hp, gp, r_t, batch.row_ptr_t, N).backward(g)
+    dw_err = float((gw.grad - gp.grad).abs().max())
+    dw_scale = float((h[r_t.long()].abs() * g[s_t.long()].abs()).sum(-1)
+                     .max())
+    if not dw_err <= REL_TOL * dw_scale:
+        raise AssertionError(f"GTV d_w: max |err| {dw_err} > {REL_TOL} of "
+                             f"{dw_scale}")
+    rp = batch.row_ptr
+    a = torch.sparse_csr_tensor(rp, batch.senders, gamma, size=(rows, N),
+                                check_invariants=False)
+    name = f"K1 spmm_csr GTV backward d_h F={F} float32"
+
+    def d_w():
+        return (h[r_t.long()] * g[s_t.long()]).sum(-1)
+
+    modes[name] = check_mode(
+        name, lambda: K.spmm_csr(g, gamma, None, batch.senders, None, rp,
+                                 None, None, None, N),
+        lambda: K.spmm_csr_plain(g, gamma, batch.senders, rp, N),
+        lambda: torch.sparse.mm(a, g), rel_tol=REL_TOL,
+        bound_bytes=csr_bytes + 2 * N * F * 4, flops=2 * E * F,
+        peak=FP32_FLOPS_PER_S,
+        scale=K.spmm_csr_plain(g.abs(), gamma.abs(), batch.senders, rp, N),
+        flush=flush, gather_bytes=E * F * 4, twice=True,
+        extra={"d_w_ms": median_ms(d_w, flush), "d_w_max_abs_err": dw_err,
+               "d_w_bound_ms": 1e3 * (2 * N * F * 4 + 4 * 3 * E)
+               / HBM_BYTES_PER_S})
+    del flush
+    return modes
+
+
+def phase_checkpoint(card, model, batch, graphs):
+    """A trained ``ClusteringModel`` saved (``save_params``) and restored
+    into a fresh model on the card: its ``s`` bit-equal; and a
+    ``PrecoarsenCache`` hit (Graclus, two levels, on the dense cell's
+    first 8 graphs) equal to the cold transform, level by level."""
+    import tempfile
+
+    import examples.clustering_tvgnn_torch as tv
+    from tgp_tpu_torch.precoarsen import PreCoarsening
+    from tgp_tpu_torch.utils.checkpoint import (PrecoarsenCache,
+                                                restore_params, save_params)
+
+    model.eval()
+    with torch.no_grad():
+        s0 = model(batch)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = save_params(tmp, model)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        fresh = tv.build_model(CLUSTER_HIDDEN, batch.num_features, k=CORA_K,
+                               device="cuda", seed=CLUSTER_SEED + 1)
+        t0 = time.perf_counter()
+        restore_params(tmp, like=fresh).eval()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        size = path.stat().st_size
+        with torch.no_grad():
+            s1 = fresh(batch)[0]
+        if not torch.equal(s0, s1):
+            raise AssertionError("restored model's s differs: max |diff| "
+                                 f"{float((s0 - s1).abs().max())}")
+        cache = PrecoarsenCache(root=f"{tmp}/cache")
+        tf = PreCoarsening(poolers="graclus", levels=2)
+        few = [(x, ei) for x, ei in graphs[:8]]
+        cold = [tf(g) for g in few]
+        t0 = time.perf_counter()
+        cache.precoarsen_with_cache(tf, few)
+        miss_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        hit = cache.precoarsen_with_cache(tf, few)
+        hit_ms = 1e3 * (time.perf_counter() - t0)
+    for c, h in zip(cold, hit):
+        for lc, lh in zip(c[-1], h[-1]):
+            for k in lc:
+                if not np.array_equal(np.asarray(lc[k]), np.asarray(lh[k])):
+                    raise AssertionError(f"cache hit differs at {k}")
+    row = dict(card=card, params_bytes=size, save_ms=save_ms,
+               restore_ms=restore_ms, s_bit_equal=True,
+               cache_graphs=len(few), cache_miss_ms=miss_ms,
+               cache_hit_ms=hit_ms, cache_hit_equal=True)
+    print(f"[checkpoint] {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_train_tu(card):
+    """The classification twin on the TU fixture ``PROTEINS_SYN`` (600
+    graphs) through ``load_dataset``, with top-k, for one epoch on the
+    card: its test accuracy and the launches."""
+    import examples.classification_torch as ex
+
+    reset_counts()
+    t0 = time.perf_counter()
+    acc = ex.main("topk", epochs=1, verbose=False, dataset="PROTEINS_SYN",
+                  data_dir="tests/fixtures/tu", device="cuda")
+    torch.cuda.synchronize()
+    graphs, _, _ = ex.load_dataset("PROTEINS_SYN", "tests/fixtures/tu")
+    row = dict(card=card, graphs=len(graphs),
+               nodes=sum(g[0].shape[0] for g in graphs),
+               edges=sum(g[1].shape[1] for g in graphs), epochs=1,
+               route=ex.LAST_ROUTE, test_acc=acc,
+               seconds=time.perf_counter() - t0, launches=read_counts())
+    print(f"[train_tu] {json.dumps(row)}", flush=True)
+    if not np.isfinite(acc):
+        raise AssertionError(f"train_tu: accuracy {acc}")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3118,13 +3530,23 @@ def main(argv=None) -> int:
                  for sch in PRE_SCHEDULES}
     host_pools = phase_host_poolers(card, d_graphs, d_labels)
     locality = phase_locality(card, d_graphs)
+    modes.update(phase_kernels_gtv(batch))
+    cluster_ex = phase_cluster_examples(card)
+    cluster_train = {}
+    for which in CLUSTER_PHASES:
+        cluster_train[which], model, m_batch = phase_train_cluster(
+            card, which, args.profile)
+        if which == "tvgnn":
+            phase_checkpoint(card, model, m_batch, d_graphs)
+        del model, m_batch
+    train_tu = phase_train_tu(card)
     # the main paths' launches, each kernel summed over every path that
     # runs it (and K2 in the locality path)
     all_runs = (serving, sparse, serving_sag, train_sag, *small.values(),
                 *serving_cl.values(), *train_cl.values(), train,
                 serving_mc, train_mc, *mincut.values(), zoo,
                 *serving_aggr.values(), serving_pre, *train_pre.values(),
-                host_pools)
+                host_pools, cluster_ex, *cluster_train.values(), train_tu)
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -3182,7 +3604,12 @@ def main(argv=None) -> int:
             *((f"precoarsened {sch} training", r, f"{PRE_STEPS} steps")
               for sch, r in train_pre.items()),
             ("host poolers", host_pools,
-             f"{len(HOST_POOLERS)} eager calls"))
+             f"{len(HOST_POOLERS)} eager calls"),
+            ("cluster examples", cluster_ex,
+             f"{len(cluster_ex['rows'])} twins at their defaults"),
+            *((f"{which} training", r, f"{CLUSTER_TRAIN_STEPS} steps")
+              for which, r in cluster_train.items()),
+            ("TU training", train_tu, "1 epoch"))
     print("launches: " + "; ".join(
         f"{name} K1 {r['launches']['spmm_csr']}, K2 "
         f"{r['launches']['segment_sum_sorted']}, K3 "

@@ -8,7 +8,17 @@ linear head, trained with Adam.
 Poolers: the port's ``get_pooler`` aliases (``topk``, ``sag``, ``asap``,
 ``pan``, ``ec``, ``graclus``, ``kmis``, ``nopool``, ``lap``, ``mincut``,
 ``diff``, ``dmon``, ``hosc``, ``jb``, ``acc``, ``bnpool``, the last
-seven also as ``<alias>_u``, and ``maxcut``).  Only the ``synthetic`` dataset is ported so far.
+seven also as ``<alias>_u``, and ``maxcut``).  Datasets as in the JAX
+example: ``synthetic``, ``gcb`` and ``expwl1`` (their npz under
+``--data-dir``), or a TU name (PROTEINS, NCI1, …; its raw text files under
+``--data-dir``, default ``data/tu``):
+
+    python -m examples.classification_torch topk --dataset PROTEINS_SYN \
+        --data-dir tests/fixtures/tu --device cpu
+
+``--checkpoint-dir`` saves the trained weights there
+(:func:`~tgp_tpu_torch.utils.checkpoint.save_params`) and checks that
+they restore into a fresh model.
 """
 
 from __future__ import annotations
@@ -23,25 +33,36 @@ import torch.nn.functional as F
 from tgp_tpu_torch import DenseGraphBatch, PoolingClassifier, prepare_batch
 from tgp_tpu_torch._device import resolve_device
 from tgp_tpu_torch.data.loaders import GraphLoader, compute_budgets
-from tgp_tpu_torch.datasets import SyntheticGraphClassification
+from tgp_tpu_torch.datasets import (EXPWL1Dataset, GraphClassificationBench,
+                                    SyntheticGraphClassification, TUDataset)
 from tgp_tpu_torch.poolers import get_pooler
 from tgp_tpu_torch.src import DenseSRCPooling
+from tgp_tpu_torch.utils.checkpoint import restore_params, save_params
 
 #: which pipeline the last ``main()`` run took ("dense" | "sparse")
 LAST_ROUTE = None
-#: the ROADMAP.md item that ports the datasets and checkpoints, by name
-TODO_ITEM = "datasets/* and utils/{checkpoint,cheatsheet,typing}.py"
 
 
 def load_dataset(dataset: str, data_dir: str | None = None):
-    """``(graphs, labels, num_classes)`` of a named dataset."""
+    """``(graphs, labels, num_classes)`` of a named dataset: ``synthetic``,
+    ``gcb`` (train and test splits), ``expwl1``, or a TU name."""
     if dataset == "synthetic":
         graphs, labels = SyntheticGraphClassification(
             num_graphs=360, num_features=8, seed=42).generate()
         return graphs, labels, 3
-    raise NotImplementedError(
-        f"dataset {dataset!r} is not ported: the TU, GCB and EXPWL1 "
-        f"readers come with ROADMAP.md's queue 1 item {TODO_ITEM!r}")
+    if dataset == "gcb":
+        tr_g, tr_y = GraphClassificationBench(root=data_dir,
+                                              split="train").load()
+        te_g, te_y = GraphClassificationBench(root=data_dir,
+                                              split="test").load()
+        return (tr_g + te_g, np.concatenate([tr_y, te_y]),
+                int(max(tr_y.max(), te_y.max())) + 1)
+    if dataset == "expwl1":
+        g, y = EXPWL1Dataset(root=data_dir).load()
+        return g, y, int(y.max()) + 1
+    ds = TUDataset(root=data_dir or "data/tu", name=dataset)
+    g, y = ds.load()
+    return g, y, ds.num_classes
 
 
 def build_model(alias: str, num_classes: int, hidden: int,
@@ -65,14 +86,20 @@ def build_model(alias: str, num_classes: int, hidden: int,
                              generator=g)
 
 
+def _logits(model, batch, sample_state=None):
+    """``model``'s logits on ``batch``, without a gradient; its pooler's
+    sample generator (if any) set to ``sample_state`` first."""
+    gen = getattr(model.pooler, "sample_generator", None)
+    if gen is not None and sample_state is not None:
+        gen.set_state(sample_state)
+    with torch.no_grad():
+        return model(batch)[0]
+
+
 def main(alias: str = "topk", epochs: int = 20, batch_size: int = 32,
          hidden: int = 64, seed: int = 0, verbose: bool = True,
          checkpoint_dir: str | None = None, dataset: str = "synthetic",
          data_dir: str | None = None, device="cuda"):
-    if checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoints are not ported: they come with ROADMAP.md's queue "
-            f"1 item {TODO_ITEM!r}")
     device = resolve_device(device)
     graphs, labels, num_classes = load_dataset(dataset, data_dir)
     n_train = int(0.85 * len(graphs)) if dataset != "synthetic" else 300
@@ -144,6 +171,23 @@ def main(alias: str = "topk", epochs: int = 20, batch_size: int = 32,
     test_acc = float(np.mean(correct))
     if verbose:
         print(f"[{alias}] test acc {test_acc:.3f}  ({time.time()-t0:.1f}s)")
+
+    if checkpoint_dir:
+        save_params(checkpoint_dir, model)
+        fresh = build_model(alias, num_classes, hidden, batch0.num_features,
+                            pre_normalized=normalize, device=device,
+                            seed=seed + 7)
+        restore_params(checkpoint_dir, like=fresh).eval()
+        # a stochastic pooler (BNPool) draws from the same state in both
+        gen = getattr(model.pooler, "sample_generator", None)
+        state = None if gen is None else gen.get_state()
+        logits_a, logits_b = (_logits(m, prep(batch0), state)
+                              for m in (model, fresh))
+        if not torch.equal(logits_a, logits_b):
+            raise RuntimeError(f"checkpoint {checkpoint_dir} restored "
+                               "weights that compute other logits")
+        if verbose:
+            print(f"checkpoint round-trip OK → {checkpoint_dir}")
     return test_acc
 
 

@@ -19,10 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
-import tgp_tpu_torch.ops.kernels.segment_spmm as K
 import tgp_tpu_torch.reduce.aggr as ta
+from tests.float_scatter_spy import spy_with_k4_paused
 from tgp_tpu.reduce import aggr as ja
 from tgp_tpu.select.base import SelectOutput as JSelect
 from tgp_tpu_torch.models.convert import params_from_flax
@@ -422,52 +421,9 @@ def test_aggr_reduce_without_a_mask_takes_every_row():
 # no float scatter in a forward or a backward
 # --------------------------------------------------------------------------
 
-#: aten ops that add floats in an order the card does not fix
-_SCATTERS = {"index_add", "index_add_", "scatter_add", "scatter_add_",
-             "index_reduce", "index_reduce_"}
-_PUTS = {"index_put", "index_put_", "_index_put_impl", "_index_put_impl_"}
-
-
-class _FloatScatterSpy(TorchDispatchMode):
-    """Records every float ``index_add_``/``scatter_add``, accumulating
-    ``index_put_`` and summing ``scatter_reduce`` dispatched while it is
-    on (``paused`` while K4's entry runs: its CPU stand-in sums by
-    ``index_add_``, its CUDA kernel does not)."""
-
-    def __init__(self):
-        super().__init__()
-        self.seen, self.paused = [], False
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = func.overloadpacket.__name__
-        target = args[0] if args else None
-        floating = (isinstance(target, torch.Tensor)
-                    and target.dtype.is_floating_point)
-        if not self.paused and floating and (
-                name in _SCATTERS
-                or name in _PUTS and (kwargs.get("accumulate")
-                                      or len(args) > 3 and args[3])
-                or name.startswith("scatter_reduce")
-                and (kwargs.get("reduce", args[4] if len(args) > 4 else "")
-                     in ("sum", "mean", "prod"))):
-            self.seen.append(name)
-        return func(*args, **kwargs)
-
-
 @pytest.mark.parametrize("use", ["readout", "select"])
 def test_no_float_scatter_in_any_aggregation(use, monkeypatch):
-    spy = _FloatScatterSpy()
-    real = K._k4_sum
-
-    def k4(*a):
-        spy.paused = True
-        try:
-            return real(*a)
-        finally:
-            spy.paused = False
-
-    monkeypatch.setattr(K, "_k4_sum", k4)
+    spy = spy_with_k4_paused(monkeypatch)
     for alias in ALIASES:
         case = _reference(alias, use)[0]
         x = torch.tensor(case.x, requires_grad=True)

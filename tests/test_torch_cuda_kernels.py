@@ -2,7 +2,8 @@
 its K1, K2 and K4 ``"wide"`` modes and K1's backward, ``segment_reduce.cu``
 (K4's ``"long"`` route and the readout's gathered sum), ``banded_spmm.cu``
 (K5), ``bmm.cu``, ``sddmm.cu``) against their plain PyTorch versions, on
-the card, and runs on the same inputs against each other (every sum order
+the card (and the models over them: GTVConv's CSR route against its
+generic one, the clustering and autoencoder models' step one), and runs on the same inputs against each other (every sum order
 but K3's is fixed, so they are equal bit for bit).  Without one the tests
 skip; on a GPU machine (which need not have JAX) run them alone:
 
@@ -1783,3 +1784,128 @@ def test_cuda_k4_reduces_a_precoarsened_level_bit_equal():
     assert K.sorted_segment_sum.launches == before + 1
     assert torch.equal(reduce_sparse(b.x.cuda(), card), got)
     assert ((got.cpu() - ref).abs() <= 1e-5 * scale + 1e-30).all()
+
+
+def _gtv_batch(device, sort_edges=True):
+    """Three random graphs (50–90 nodes, weighted, no self-loops: a loop's
+    |h_i − h_i|₁ = 0 makes γ = w/eps, whose terms cancel in the output
+    only up to rounding of that size), collated with the CSR layout."""
+    from tgp_tpu_torch.graph import from_graphs
+
+    rng = np.random.default_rng(71)
+    graphs = []
+    for n in (50, 90, 70):
+        e = 6 * n
+        ei = rng.integers(0, n, (2, e))
+        ei[1] = np.where(ei[0] == ei[1], (ei[1] + 1) % n, ei[1])
+        graphs.append((rng.normal(size=(n, 8)).astype(np.float32), ei,
+                       (rng.random(e) + 0.5).astype(np.float32)))
+    return from_graphs(graphs, pad_nodes=256, pad_edges=1536,
+                       sort_edges=sort_edges, device=device)
+
+
+def _gtv_run(conv, batch):
+    """Output and gradients (x, weight, bias) of a fixed cotangent."""
+    x = batch.x.clone().requires_grad_(True)
+    conv.zero_grad(set_to_none=True)
+    out = conv(batch, x)
+    cot = torch.linspace(-1, 1, out.numel(), device=out.device).view(
+        out.shape)
+    (out * cot).sum().backward()
+    return [t.detach() for t in (out, x.grad, conv.weight.grad,
+                                 conv.bias.grad)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delta", [0.311, 1.0])
+def test_cuda_gtvconv_csr_route_matches_generic_and_repeats(delta,
+                                                             monkeypatch):
+    """GTVConv on the card: the CSR route (K1 over the transpose layout,
+    forced by the regime map) against the generic route on the same batch
+    and weights (output within 1e-5 of its largest |value|, gradients
+    within 1e-4), K1 twice forward and once backward, two runs of the
+    CSR route equal bit for bit, and the CPU's generic route beside it."""
+    from tgp_tpu_torch.mp import gtvconv as G
+
+    _skip_without_card()
+    batch = _gtv_batch("cuda")
+    conv = G.GTVConv(8, 16, delta_coeff=delta, device="cuda",
+                     generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        conv.bias.fill_(0.1)
+    runs = {}
+    for route in (True, False):
+        monkeypatch.setattr(G, "use_kernel_spmm", lambda *a: route)
+        before = K.spmm_csr.launches
+        runs[route] = _gtv_run(conv, batch)
+        assert K.spmm_csr.launches - before == (3 if route else 0)
+    monkeypatch.setattr(G, "use_kernel_spmm", lambda *a: True)
+    again = _gtv_run(conv, batch)
+    assert all(torch.equal(a, b) for a, b in zip(runs[True], again))
+    cpu = G.GTVConv(8, 16, delta_coeff=delta, device="cpu")
+    cpu.load_state_dict(conv.state_dict())
+    monkeypatch.setattr(G, "use_kernel_spmm", lambda *a: False)
+    ref = _gtv_run(cpu, batch.to("cpu"))
+    for i, (csr, gen, c) in enumerate(zip(runs[True], runs[False], ref)):
+        tol = 1e-5 if i == 0 else 1e-4
+        scale = max(float(c.abs().max()), 1e-30)
+        assert float((csr - gen).abs().max()) <= tol * scale, i
+        assert float((csr.cpu() - c).abs().max()) <= tol * scale, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gcn_mincut", "gtv_acc", "gtv_acc_u",
+                                   "node_topk", "node_mincut"])
+def test_cuda_cluster_models_step_matches_cpu_and_repeats(which):
+    """``ClusteringModel`` and ``PoolLiftNodeClassifier`` on the card:
+    step one's loss and gradients twice give the same bits and agree with
+    the CPU's (the loss within 1e-4 of the sum of its terms' |values| —
+    MinCut's cut and orthogonality terms nearly cancel —, each leaf within
+    1e-3 of its largest |value|)."""
+    from tgp_tpu_torch.models.autoencoder import PoolLiftNodeClassifier
+    from tgp_tpu_torch.models.clustering import ClusteringModel
+    from tgp_tpu_torch.poolers import get_pooler
+
+    _skip_without_card()
+    kind, alias = which.split("_", 1)
+    models, runs = {}, {}
+    for dev in ("cpu", "cuda"):
+        g = torch.Generator().manual_seed(5)
+        pooler = get_pooler(alias, in_channels=16, k=4, ratio=0.5,
+                            device=dev, generator=g)
+        if kind == "node":
+            models[dev] = PoolLiftNodeClassifier(pooler, 3, hidden=16,
+                                                 in_channels=8, device=dev,
+                                                 generator=g)
+        else:
+            models[dev] = ClusteringModel(pooler, hidden=16, mp_type=kind,
+                                          in_channels=8, device=dev,
+                                          generator=g)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+
+    def step(model, batch):
+        model.zero_grad(set_to_none=True)
+        head, out = model(batch)
+        terms = list(out.loss.values())
+        if kind == "node":
+            y = torch.arange(head.shape[0], device=head.device) % 3
+            terms.append(torch.nn.functional.cross_entropy(head, y))
+        loss = sum(terms)
+        loss.backward()
+        step.scale = sum(abs(float(v.detach())) for v in terms)
+        return loss.detach(), {k: v.grad.detach().clone()
+                               for k, v in model.named_parameters()}
+
+    for dev in ("cpu", "cuda"):
+        batch = _gtv_batch(dev, sort_edges=False)
+        runs[dev] = step(models[dev], batch)
+        if dev == "cuda":
+            again = step(models[dev], batch)
+            assert torch.equal(again[0], runs[dev][0])
+            assert all(torch.equal(again[1][k], g)
+                       for k, g in runs[dev][1].items())
+    (l_c, g_c), (l_g, g_g) = runs["cpu"], runs["cuda"]
+    assert abs(float(l_g) - float(l_c)) <= 1e-4 * step.scale
+    for k, g in g_c.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        assert float((g_g[k].cpu() - g).abs().max()) <= 1e-3 * scale, k

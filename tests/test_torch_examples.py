@@ -3,9 +3,13 @@ the accuracy bounds of ``tests/test_examples_smoke.py``'s JAX tests (0.6
 for ``examples/classification.py`` and 0.4 for
 ``examples/classification_pan.py``, two epochs each; 0.5 for
 ``examples/classification_aggr_reduce.py``, five epochs), the
-aggregation example's ``Net`` against the JAX one, and the precoarsening
+aggregation example's ``Net`` against the JAX one, the precoarsening
 twin (each schedule one epoch; its ``PrecoarsenedNet`` against JAX's:
-logits, and step one's loss, gradients and Adam update against optax)."""
+logits, and step one's loss, gradients and Adam update against optax),
+the classification twin's datasets (equal to the JAX example's) and
+checkpoints, and the clustering, TVGNN and node-classification twins at
+the JAX smoke tests' epochs and bounds (NMI above 0.5, accuracy above
+0.6)."""
 
 import functools
 import re
@@ -63,14 +67,85 @@ def test_classification_pan_twin_trains():
     assert pan_main(epochs=2, verbose=False, device="cpu") > 0.4
 
 
-def test_classification_twin_names_what_is_not_ported():
-    """Both errors name the ROADMAP item by its name, which a re-anchor
-    does not renumber."""
-    item = re.escape(ex.TODO_ITEM)
-    with pytest.raises(NotImplementedError, match=item):
-        ex.load_dataset("PROTEINS")
-    with pytest.raises(NotImplementedError, match=item):
-        ex.main("sag", epochs=1, device="cpu", checkpoint_dir="ckpt")
+def test_classification_twin_names_what_is_not_ported(tmp_path):
+    """Every dataset is ported now: what the twin cannot load is named by
+    the dataset's own error, the missing files, as in the JAX example."""
+    with pytest.raises(FileNotFoundError, match="PROTEINS"):
+        ex.load_dataset("PROTEINS", str(tmp_path))
+    for name in ("gcb", "expwl1"):
+        with pytest.raises(RuntimeError, match=re.escape(str(tmp_path))):
+            ex.load_dataset(name, str(tmp_path))
+    assert not hasattr(ex, "TODO_ITEM")
+
+
+@pytest.mark.parametrize("name,data_dir", [
+    ("MINI", "tests/fixtures/tu"), ("PROTEINS_SYN", "tests/fixtures/tu"),
+    ("gcb", "tests/fixtures/gcb"), ("expwl1", "tests/fixtures/expwl1"),
+    ("synthetic", None)])
+def test_classification_twin_load_dataset_matches_jax(name, data_dir):
+    import examples.classification as j_ex
+
+    jg, jy, jc = j_ex.load_dataset(name, data_dir)
+    tg, ty, tc = ex.load_dataset(name, data_dir)
+    assert jc == tc and len(jg) == len(tg)
+    np.testing.assert_array_equal(ty, jy)
+    assert ty.dtype == jy.dtype
+    for (jx, jei), (tx, tei) in zip(jg, tg):
+        np.testing.assert_array_equal(tx, jx)
+        np.testing.assert_array_equal(tei, jei)
+        assert (tx.dtype, tei.dtype) == (jx.dtype, jei.dtype)
+
+
+def test_classification_twin_trains_on_a_tu_fixture():
+    acc = ex.main("topk", epochs=2, verbose=False, device="cpu",
+                  dataset="PROTEINS_SYN", data_dir="tests/fixtures/tu")
+    assert acc > 0.6
+
+
+@pytest.mark.parametrize("alias", ["sag", "bnpool"])
+def test_classification_twin_checkpoint_restores(alias, tmp_path):
+    """``--checkpoint-dir`` writes the trained weights, which restore into
+    a fresh model (the twin checks its logits bit for bit; BNPool's draws
+    from one generator state)."""
+    from tgp_tpu_torch.utils.checkpoint import restore_params
+
+    ex.main(alias, epochs=1, verbose=False, device="cpu",
+            checkpoint_dir=str(tmp_path / "ck"))
+    sd = restore_params(tmp_path / "ck", device="cpu")
+    g, _, c = ex.load_dataset("synthetic")
+    fresh = ex.build_model(alias, c, 64, g[0][0].shape[1], device="cpu",
+                           seed=5)
+    assert set(sd) == set(fresh.state_dict())
+    fresh.load_state_dict(sd)
+
+
+def test_cluster_twins_learn_as_jax_tests_ask():
+    """The JAX smoke tests' epochs and bounds: clustering (MinCut, 60
+    epochs) and TVGNN (60) NMI above 0.5, node classification (top-k, 40)
+    test accuracy above 0.6; the unbatched MinCut and a dense lift too."""
+    from examples.clustering_torch import main as cluster
+    from examples.clustering_tvgnn_torch import main as tvgnn
+    from examples.node_class_torch import main as node_class
+
+    assert cluster("mincut", epochs=60, verbose=False, device="cpu") > 0.5
+    assert cluster("mincut_u", epochs=60, verbose=False, device="cpu") > 0.5
+    assert tvgnn(epochs=60, verbose=False, device="cpu") > 0.5
+    assert node_class("topk", epochs=40, verbose=False, device="cpu") > 0.6
+    assert node_class("mincut", epochs=40, verbose=False,
+                      device="cpu") > 0.6
+
+
+def test_cluster_twins_match_jax_examples_data():
+    """The twins' CSBM settings give the JAX examples' graphs."""
+    from tgp_tpu.datasets.csbm import CSBMDataset as JCSBM
+    from tgp_tpu_torch.datasets.csbm import CSBMDataset
+
+    for kw in (dict(num_graphs=1, num_nodes=150, num_communities=4,
+                    p_in=0.35, p_out=0.03, feature_dim=16, mu=1.2, seed=1),
+               dict(num_graphs=1, num_nodes=160, num_communities=4,
+                    p_in=0.3, p_out=0.03, feature_dim=16, mu=1.0, seed=3)):
+        for a, b in zip(JCSBM(**kw)[0], CSBMDataset(**kw)[0]):
+            np.testing.assert_array_equal(a, b)
 
 
 @functools.lru_cache(maxsize=None)

@@ -362,3 +362,96 @@ def test_pan_scale_still_equals_jax(normalize):
     for got, ref in zip(tconv(tb), jconv.apply(p, jb)):
         np.testing.assert_allclose(_np(got), _np(ref), rtol=0,
                                    atol=1e-5 * max(1, np.abs(_np(ref)).max()))
+
+
+# ---------------------------------------------------------------------------
+# gathers whose gradient was an accumulating index_put (sparse losses, the
+# sparse lift), and masked dense_rows / the batched quantile
+# ---------------------------------------------------------------------------
+
+def _loss_case(name):
+    """``(fn, inputs)``: a loss or lift of the port on a padded two-graph
+    batch, ``fn(S)`` for a leaf ``S`` that takes a gradient."""
+    from tgp_tpu_torch import losses as L
+    from tgp_tpu_torch.lift.base import lift_sparse
+    from tgp_tpu_torch.ops.segment import dense_rows
+    from tgp_tpu_torch.select.base import SelectOutput
+
+    graphs = [g[:2] for g in _dup_graphs(61, count=2)]
+    tb = t_from(graphs, pad_nodes=40, pad_edges=256, **CPU)
+    N, B = tb.num_nodes, tb.num_graphs
+    edges = (tb.senders, tb.receivers, tb.edge_weight)
+    rng = np.random.default_rng(62)
+    S = torch.tensor(rng.random((N, 3)).astype(np.float32),
+                     requires_grad=True)
+    graph = (tb.node_graph, B)
+    if name == "sparse_mincut":
+        return lambda s: L.sparse_mincut_loss(*edges, s, *graph,
+                                              tb.node_mask), S
+    if name == "sparse_totvar":
+        return lambda s: L.sparse_totvar_loss(*edges, s, *graph), S
+    if name == "sparse_spectral":
+        return lambda s: L.sparse_spectral_loss(*edges, s, *graph,
+                                                tb.node_mask), S
+    if name == "unbatched_asym_norm":
+        return lambda s: L.unbatched_asym_norm_loss(s, 3, *graph,
+                                                    tb.node_mask), S
+    if name == "asym_norm":
+        d = to_dense(tb)
+        Sd = torch.tensor(rng.random(d.mask.shape + (3,)).astype(np.float32),
+                          requires_grad=True)
+        return lambda s: L.asym_norm_loss(s, 3, mask=d.mask), Sd
+    if name == "dense_rows":
+        return lambda s: dense_rows(s, tb.node_graph, tb.node_pos, B,
+                                    tb.max_nodes, tb.node_mask), S
+    # lift_sparse: every node of a graph in one of two clusters
+    ci = (tb.node_graph.long() * 2 + tb.node_pos.long() % 2).to(torch.int32)
+    so = SelectOutput(cluster_index=ci, num_clusters=2 * B,
+                      weight=torch.linspace(0.5, 1.5, N),
+                      node_sel_mask=tb.node_mask, s_inv_op=name[5:])
+    xp = torch.tensor(rng.random((2 * B, 4)).astype(np.float32),
+                      requires_grad=True)
+    return lambda x: lift_sparse(x, so), xp
+
+
+_GATHER_CASES = ["sparse_mincut", "sparse_totvar", "sparse_spectral",
+                 "unbatched_asym_norm", "asym_norm", "dense_rows",
+                 "lift_transpose", "lift_inverse"]
+
+
+@pytest.mark.parametrize("name", _GATHER_CASES)
+def test_loss_and_lift_gradients_add_in_a_fixed_order(name, monkeypatch):
+    """The sparse losses' ``S[senders]``/``S[receivers]`` and the
+    quantile's ``quant[node_graph]``, and the sparse lift's
+    ``x_pool[cluster]``, were advanced-index gathers, whose gradient is
+    an accumulating ``index_put`` (float atomics on the card); the batched
+    quantile's ``torch.gather`` backward was a ``scatter_add``, and
+    ``dense_rows`` an ``index_add``.  Now the gathers are
+    :func:`~tgp_tpu_torch.ops.segment.gather_rows` (a fixed-order K4
+    gradient), the quantile a masked sum and ``dense_rows`` an indexed
+    write: no float scatter forward or backward, and the same values and
+    gradients as the indexing they replace."""
+    from tests.float_scatter_spy import spy_with_k4_paused
+
+    fn, leaf = _loss_case(name)
+    spy = spy_with_k4_paused(monkeypatch)
+    with spy:
+        out = fn(leaf)
+        cot = torch.linspace(-1, 1, out.numel()).reshape(out.shape)
+        (out * cot).sum().backward()
+    assert spy.seen == [], spy.seen
+    # the values and gradient equal plain autograd over torch indexing
+    got, grad = out.detach(), leaf.grad.clone()
+    leaf.grad = None
+    import tgp_tpu_torch.losses as L
+    import tgp_tpu_torch.lift.base as LB
+    import tgp_tpu_torch.ops.segment as seg
+
+    plain = lambda x, i, n: x[i.long()]  # noqa: E731
+    for mod in (L, LB):
+        monkeypatch.setattr(mod, "gather_rows", plain)
+    out2 = fn(leaf)
+    (out2 * cot).sum().backward()
+    torch.testing.assert_close(got, out2.detach(), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(grad, leaf.grad, rtol=1e-5, atol=1e-6)
+    assert seg.gather_rows is not plain

@@ -172,12 +172,29 @@ assert {'tgp_tpu_torch.ops.kernels.bmm', 'tgp_tpu_torch.models.prepare',
         'tgp_tpu_torch.data.pooled_loader', 'tgp_tpu_torch.reduce.eigenpool',
         'tgp_tpu_torch.lift.eigenpool', 'tgp_tpu_torch.poolers.host_base',
         'tgp_tpu_torch.poolers.ndp', 'tgp_tpu_torch.poolers.nmf',
-        'tgp_tpu_torch.poolers.sep', 'tgp_tpu_torch.poolers.eigenpool'
+        'tgp_tpu_torch.poolers.sep', 'tgp_tpu_torch.poolers.eigenpool',
+        'tgp_tpu_torch.mp.gtvconv', 'tgp_tpu_torch.models.clustering',
+        'tgp_tpu_torch.models.autoencoder', 'tgp_tpu_torch.datasets.csbm',
+        'tgp_tpu_torch.datasets.multipartite', 'tgp_tpu_torch.datasets.gset',
+        'tgp_tpu_torch.datasets.pygsp', 'tgp_tpu_torch.datasets.tudataset',
+        'tgp_tpu_torch.datasets.downloads', 'tgp_tpu_torch.utils.checkpoint',
+        'tgp_tpu_torch.utils.cheatsheet', 'tgp_tpu_torch.utils.typing'
         } <= set(mods), mods
 import examples.classification_torch
 import examples.classification_pan_torch
 import examples.classification_aggr_reduce_torch
 import examples.pre_coarsening_torch
+import examples.clustering_torch
+import examples.clustering_tvgnn_torch
+import examples.node_class_torch
+from tgp_tpu_torch.datasets import PyGSPDataset
+from tgp_tpu_torch.models.autoencoder import PoolLiftNodeClassifier
+from tgp_tpu_torch.models.clustering import ClusteringModel, nmi_score
+from tgp_tpu_torch.mp.gtvconv import GTVConv
+from tgp_tpu_torch.utils.cheatsheet import render_cheatsheet
+# NMI runs without scikit-learn
+assert nmi_score([0, 0, 1, 1], [1, 1, 0, 0]) == 1.0
+render_cheatsheet()
 from tgp_tpu_torch.reduce.aggr import AggrReduce, get_aggr
 from tgp_tpu_torch.data.pooled_loader import PooledGraphLoader, collate_level
 from tgp_tpu_torch.precoarsen import PreCoarsening, precoarsen_graph
@@ -188,8 +205,8 @@ for alias, kw in (('graclus', {}), ('ndp', {}), ('sep', {}),
                   ('nmf', {'k': 3}), ('eigen', {'k': 3})):
     precoarsen_graph(alias, ring, 6, levels=2, **kw)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sklearn',
-                                    'tgp_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                    'sklearn', 'tgp_tpu'))
 assert not bad, bad
 import torch
 assert not torch.cuda.is_available()
@@ -221,7 +238,14 @@ for call in (lambda: tgp_tpu_torch.from_graphs(g),
                                    np.zeros(1), 3, 8, 128, 2),
              lambda: ndp_level(g[0][1], 3, eigensolver='lobpcg'),
              lambda: examples.pre_coarsening_torch.PrecoarsenedNet(2, 3),
-             lambda: examples.pre_coarsening_torch.main('graclus', epochs=1)):
+             lambda: examples.pre_coarsening_torch.main('graclus', epochs=1),
+             lambda: GTVConv(4, 4),
+             lambda: ClusteringModel(None, hidden=4),
+             lambda: PoolLiftNodeClassifier(None, 3, hidden=4),
+             lambda: PyGSPDataset('Ring', n=8).as_graph_batch(),
+             lambda: examples.clustering_torch.main('mincut', epochs=1),
+             lambda: examples.clustering_tvgnn_torch.main(epochs=1),
+             lambda: examples.node_class_torch.main('topk', epochs=1)):
     try:
         call()
     except RuntimeError as e:

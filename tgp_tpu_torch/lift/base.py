@@ -46,11 +46,12 @@ def lift_sparse(x_pool: torch.Tensor, so: SelectOutput,
         raise ValueError(f"reduce_op must be sum|mean|max, got {reduce_op!r}")
     w = so.weight
     ci = so.cluster_index.long()
+    C = so.num_clusters
     if _resolve_op(so, matrix_op) == "inverse":
-        denom = segment_sum(torch.where(so.node_sel_mask, w * w, 0.0), ci,
-                            so.num_clusters)
-        w = w / torch.clamp(denom[ci], min=1e-12)
-    out = x_pool[ci] * w[:, None]
+        denom = segment_sum(torch.where(so.node_sel_mask, w * w, 0.0), ci, C)
+        w = w / torch.clamp(gather_rows(denom, ci, C), min=1e-12)
+    # the gathers' gradients add each cluster's rows in a fixed order
+    out = gather_rows(x_pool, ci, C) * w[:, None]
     return torch.where(so.node_sel_mask[:, None], out, 0.0)
 
 

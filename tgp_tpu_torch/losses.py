@@ -22,7 +22,8 @@ import math
 
 import torch
 
-from tgp_tpu_torch.ops.segment import segment_sum, segment_topk_rank
+from tgp_tpu_torch.ops.segment import (gather_rows, segment_sum,
+                                       segment_topk_rank)
 from tgp_tpu_torch.ops.sparse import (check_and_filter_edge_weights,
                                       rank3_trace, spmm)
 
@@ -160,7 +161,8 @@ def sparse_mincut_loss(senders, receivers, edge_weight, S, node_graph,
     degrees = segment_sum(edge_weight, s, N)
     den = segment_sum(degrees * (S * S).sum(-1), node_graph, num_graphs,
                       mask=node_mask)
-    edge_contrib = edge_weight * (S[s] * S[r]).sum(-1)
+    edge_contrib = edge_weight * (gather_rows(S, s, N)
+                                  * gather_rows(S, r, N)).sum(-1)
     num = segment_sum(edge_contrib, node_graph[s], num_graphs)
     return _batch_reduce(mincut_from_sums(num, den), batch_reduction)
 
@@ -325,7 +327,8 @@ def sparse_totvar_loss(senders, receivers, edge_weight, S, node_graph,
                        num_graphs, batch_reduction="mean"):
     edge_weight = check_and_filter_edge_weights(edge_weight)
     s, r = senders.long(), receivers.long()
-    l1 = (S[s] - S[r]).abs().sum(-1)
+    N = S.shape[0]
+    l1 = (gather_rows(S, s, N) - gather_rows(S, r, N)).abs().sum(-1)
     eg = node_graph[s]
     loss = segment_sum(edge_weight * l1, eg, num_graphs)
     n_edges = segment_sum((edge_weight != 0).to(S.dtype), eg, num_graphs)
@@ -367,7 +370,7 @@ def unbatched_asym_norm_loss(S, k, node_graph, num_graphs, node_mask=None,
         return S.new_zeros(())
     quant, n_g = _masked_col_quantile(S, k, node_graph, num_graphs,
                                       node_mask)
-    asym = _asym(S - quant[node_graph.long()], k)
+    asym = _asym(S - gather_rows(quant, node_graph, num_graphs), k)
     if node_mask is not None:
         asym = torch.where(node_mask[:, None], asym, 0.0)
     inner = segment_sum(asym.sum(-1), node_graph, num_graphs,
@@ -400,7 +403,11 @@ def asym_norm_loss(S, k, mask=None, batch_reduction="mean"):
     s_sorted = _sorted_desc(torch.where(mask[..., None], S, -torch.inf))
     idx = torch.minimum(torch.floor(n_g / k),
                         torch.clamp(n_g - 1, min=0)).long()
-    quant = torch.gather(s_sorted, 1, idx[:, None, None].expand(B, 1, K))
+    # row idx of each graph, picked by a mask (its gradient is a mask too,
+    # where a gather's would be a scatter-add)
+    pick = torch.arange(N, device=S.device)[None, :, None] == \
+        idx[:, None, None]
+    quant = torch.where(pick, s_sorted, 0.0).sum(1, keepdim=True)
     diff = torch.where(mask[..., None], S - quant, 0.0)
     asym = torch.where(mask[..., None], _asym(diff, k), 0.0)
     beta = n_g * (k - 1)
@@ -466,7 +473,8 @@ def sparse_spectral_loss(senders, receivers, edge_weight, S, node_graph,
     N = S.shape[0]
     degrees = segment_sum(edge_weight, s, N)
     eg = node_graph[s]
-    edge_contrib = edge_weight * (S[s] * S[r]).sum(-1)
+    edge_contrib = edge_weight * (gather_rows(S, s, N)
+                                  * gather_rows(S, r, N)).sum(-1)
     tr_ast = segment_sum(edge_contrib, eg, num_graphs)
     m = segment_sum(edge_weight, eg, num_graphs) / 2
     ca = segment_sum(S * degrees[:, None], node_graph, num_graphs,

@@ -2,11 +2,12 @@
 top-k, SAG, ASAP, PAN, edge-contraction, k-MIS, MaxCut, a dense
 soft-cluster pooler or BNPool, or one without parameters), ``DenseTopkClassifier``, the
 ``PANNet`` of ``examples/classification_pan.py``, an ``AggrReduce``, the
-``Net`` of ``examples/classification_aggr_reduce.py`` and the
-``PrecoarsenedNet`` of ``examples/pre_coarsening.py`` over to the port's
-modules, so both packages compute the same function.  A flax gradient
-tree has the same paths and maps the same way, so gradients compare leaf
-by leaf."""
+``Net`` of ``examples/classification_aggr_reduce.py``, the
+``PrecoarsenedNet`` of ``examples/pre_coarsening.py``, a
+``ClusteringModel`` (GCN or GTV layers) and a ``PoolLiftNodeClassifier``
+over to the port's modules, so both packages compute the same function.
+A flax gradient tree has the same paths and maps the same way, so
+gradients compare leaf by leaf."""
 
 from __future__ import annotations
 
@@ -18,10 +19,12 @@ import torch
 
 __all__ = ["params_from_flax"]
 
-#: the PANNet's, the aggregation Net's and the PrecoarsenedNet's flax
-#: module names → the port's (``GCNConv_<i>``, i ≥ 1, → ``conv_<i>``)
+#: the PANNet's, the aggregation Net's, the PrecoarsenedNet's and the
+#: clustering and autoencoder models' flax module names → the port's
+#: (``GCNConv_<i>`` and ``GTVConv_<i>``, i ≥ 1, → ``conv_<i>``)
 _MODULES = {"PANConv_0": "pan_conv", "PANPooling_0": "pooler",
-            "GCNConv_0": "conv", "AggrReduce_0": "aggr_reduce"}
+            "GCNConv_0": "conv", "GTVConv_0": "conv",
+            "AggrReduce_0": "aggr_reduce"}
 
 #: a layer inside a pooler (SAG's scorer, ASAP's layers) or a conv
 _LAYER = r"((?:pooler|pan_conv|conv|conv_\d+)(?:/\w+)?)"
@@ -80,7 +83,8 @@ _RULES = (
     (_LAYER + r"/Dense_([12])/kernel", r"\1.lin_\2.weight", True),
     (_LAYER + r"/Dense_([12])/bias", r"\1.lin_\2.bias", False),
     (r"pooler/(lin|att)/kernel", r"pooler.\1.weight", True),  # ASAP
-    (_LAYER + r"/(bias|hop_weight|p|beta)", r"\1.\2", False),
+    # GTVConv's weight [in, out] keeps the flax layout
+    (_LAYER + r"/(bias|hop_weight|p|beta|weight)", r"\1.\2", False),
     # the aggregations: dense layers by flax's names (Dense_i → dense_i),
     # attention blocks (MultiHeadDotProductAttention_i → attn_i), layer
     # norms (LayerNorm_i → norm_i) and parameters of their own
@@ -155,9 +159,10 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a flax ``PoolingClassifier``, ``DenseTopkClassifier``,
-    ``PANNet``, ``AggrReduce``, aggregation ``Net`` or ``PrecoarsenedNet``
-    parameter (or gradient) tree (``{"params": ...}`` or its inner dict;
-    leaves as numpy or JAX arrays) onto a ``state_dict`` of the port's module of the same
+    ``PANNet``, ``AggrReduce``, aggregation ``Net``, ``PrecoarsenedNet``,
+    ``ClusteringModel`` or ``PoolLiftNodeClassifier`` parameter (or
+    gradient) tree (``{"params": ...}`` or its inner dict; leaves as numpy
+    or JAX arrays) onto a ``state_dict`` of the port's module of the same
     name.  Dense kernels (``[in, out]``) are transposed for ``nn.Linear``,
     attention kernels flattened over their heads, and an LSTM's or GRU's
     gate leaves stacked in torch's gate order.  Raises on a leaf it
@@ -168,8 +173,8 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for path, leaf in _flatten(tree):
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
         head, _, rest = path.partition("/")
-        head = _MODULES.get(head, re.sub(r"^GCNConv_(\d+)$", r"conv_\1",
-                                         head))
+        head = _MODULES.get(head, re.sub(r"^(?:GCN|GTV)Conv_(\d+)$",
+                                         r"conv_\1", head))
         path = "/".join(filter(None, (head, rest)))
         m = re.fullmatch(_GATE, path)
         if m:

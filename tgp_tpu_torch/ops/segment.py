@@ -29,6 +29,7 @@ __all__ = [
     "segment_topk_rank",
     "node_cells",
     "dense_rows",
+    "node_rows",
 ]
 
 Tensor = torch.Tensor
@@ -254,11 +255,50 @@ def node_cells(node_graph: Tensor, node_pos: Tensor, max_nodes: int
 def dense_rows(t: Tensor, node_graph: Tensor, node_pos: Tensor,
                num_graphs: int, max_nodes: int,
                node_mask: Optional[Tensor] = None) -> Tensor:
-    """Rows ``t [N, C]`` scattered to ``[B, max_nodes, C]`` by node
-    (masked rows add zeros: padding nodes share a cell with a real one).
+    """Rows ``t [N, C]`` placed in ``[B, max_nodes, C]`` by node.  With
+    ``node_mask`` each valid node writes its own cell and the masked ones
+    a spare row past the end (padding nodes share a cell with a real
+    one), so no float is added; without it, rows sharing a cell add.
     Its gradient is a row gather."""
-    if node_mask is not None:
-        t = torch.where(node_mask[:, None], t, 0.0)
-    out = t.new_zeros(num_graphs * max_nodes, t.shape[1])
-    out = out.index_add(0, node_cells(node_graph, node_pos, max_nodes), t)
+    cells = num_graphs * max_nodes
+    cell = node_cells(node_graph, node_pos, max_nodes)
+    if node_mask is None:
+        out = t.new_zeros(cells, t.shape[1]).index_add(0, cell, t)
+    else:
+        cell = torch.where(node_mask, cell, cells)
+        out = t.new_zeros(cells + 1, t.shape[1]).index_put(
+            (cell,), t)[:cells]
     return out.view(num_graphs, max_nodes, t.shape[1])
+
+
+class _NodeRows(torch.autograd.Function):
+    """Row ``cell[i]`` of ``flat [C + 1, F]`` for each node; each real
+    node owns its cell and the masked ones read the spare row ``C``, so
+    the gradient writes each node's row to its cell (no float sum)."""
+
+    @staticmethod
+    def forward(ctx, flat, cell):
+        ctx.save_for_backward(cell)
+        ctx.rows = flat.shape[0]
+        return flat.index_select(0, cell)
+
+    @staticmethod
+    def backward(ctx, g):
+        cell, = ctx.saved_tensors
+        out = g.new_zeros(ctx.rows, g.shape[1]).index_put_((cell,), g)
+        # the masked nodes' writes all land on the spare row
+        out[-1] = 0
+        return out, None
+
+
+def node_rows(t: Tensor, node_graph: Tensor, node_pos: Tensor,
+              node_mask: Tensor) -> Tensor:
+    """``[N, C]`` rows of a ``[B, max_nodes, C]`` tensor at each node's
+    cell (the inverse of :func:`dense_rows`), zero on masked nodes.  Each
+    valid node owns its cell, so the gradient is a plain indexed write,
+    not a sum."""
+    B, M, C = t.shape
+    spare = B * M
+    cell = torch.where(node_mask, node_cells(node_graph, node_pos, M), spare)
+    flat = torch.cat([t.reshape(spare, C), t.new_zeros(1, C)])
+    return _NodeRows.apply(flat, cell)
