@@ -177,7 +177,23 @@ each of which raises on failure:
    trained TVGNN model, restores it into a fresh one (``s`` bit-equal)
    and holds a ``PrecoarsenCache`` hit to the cold levels; ``[train_tu]``
    trains the classification twin one epoch on the ``PROTEINS_SYN``
-   fixture through its ``load_dataset``.
+   fixture through its ``load_dataset``;
+17. the last three example twins and ``parallel/``:
+   ``[example_inference]`` runs the serving twin at its defaults (accuracy
+   above 0.6, no new bucket on the second wave, the trained model's logits
+   held to the CPU, a repeated request bit-equal, request ms);
+   ``[example_large_graph]`` the large-graph twin at n = 65,536 (30 steps,
+   K1 and K4 every step, ms/step and edges/s, step one repeated bit for
+   bit and held to the CPU, busy time and idle share); ``[time_and_mem]``
+   the timing twin's 15 aliases at sizes 50 and 200 (fwd and fwd+bwd ms,
+   memory now and at the peak, each alias's forward repeated bit for bit
+   and held to the CPU; any failed alias fails the phase); ``[parallel]``
+   a world of one rank over NCCL in this process: the sharded SpMM on the
+   serving graph against ``spmm`` (K1 forward and backward), the ring
+   variant, the sharded pooled forward at the scaling harness's defaults
+   against its single-device twin, 3 data-parallel steps (bit-equal to
+   the plain steps) and 3 hybrid steps on a 1 × 1 mesh against the
+   single-device twin's, and the scaling harness at D = 1.
 
 Every training phase first runs step one twice from the same weights,
 batch and generator states and fails unless the loss and every gradient
@@ -3424,6 +3440,431 @@ def phase_train_tu(card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the last three example twins and parallel/ on a world of one rank
+# ---------------------------------------------------------------------------
+
+#: the timing twin's forward on the card against the CPU (relative)
+TIMED_VALUE_TOL = 1e-4
+#: the large-graph twin's steps timed for the idle share (after main's 30)
+LARGE_TIMED_STEPS = 5
+#: the sharded SpMM and pooled forward against their single-device twins
+#: (relative to the output's largest |value|); the hybrid and DP steps'
+#: weights after PARALLEL_STEPS steps against the single-device steps'
+PARALLEL_TOL, PARALLEL_STEPS = 1e-4, 3
+#: the hybrid steps' SGD rate: the readout sums 16,384 supernodes, so the
+#: gradient is large (at 1e-6 step two's loss is already 0 on the CPU)
+HYBRID_LR = 1e-7
+
+
+def phase_example_inference(card):
+    """The serving twin (``examples/inference_torch.py``) at its defaults on
+    the card: accuracy above the JAX smoke test's 0.6, no new bucket on the
+    second wave; the trained model's logits for the 60 test graphs held to
+    the same weights on the CPU (2% of the logit scale), a repeated request
+    bit-equal, request ms; the twin's CPU run beside it.  Kernel launches
+    counted over the card's run."""
+    import examples.inference_torch as inf
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    t0 = time.perf_counter()
+    acc = inf.main(verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_counts()
+    serving = dict(inf.LAST_SERVING)
+    model, pred = serving.pop("model"), serving.pop("predictor")
+    if not acc > ACC_BOUND or serving["new_buckets"] != 0:
+        raise AssertionError(f"inference twin: accuracy {acc} (want > "
+                             f"{ACC_BOUND}), {serving['new_buckets']} new "
+                             "buckets on the second wave (want 0)")
+    test_g = inf.SyntheticGraphClassification(
+        num_graphs=360, num_features=8, seed=42).generate()[0][300:]
+    req_ms = []
+    for g in test_g[:REQUESTS * 3]:
+        t0 = time.perf_counter()
+        pred([g])
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+    first, again = pred(test_g[:8]), pred(test_g[:8])
+    if not np.array_equal(first, again):
+        raise AssertionError("inference twin: a repeated request differs")
+    cpu_model = inf.build_model("topk", 32, 8, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    cpu_model.eval()
+    ref = inf.Predictor(lambda b: cpu_model(b)[0], batch_size=8,
+                        device="cpu")(test_g)
+    tol = 2e-2 * float(np.abs(ref).max())
+    diff = float(np.abs(serving["logits"] - ref).max())
+    if diff > tol:
+        raise AssertionError(f"inference twin: card logits vs CPU max |diff| "
+                             f"{diff} > {tol}")
+    t0 = time.perf_counter()
+    cpu_acc = inf.main(verbose=False, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    row = dict(card=card, accuracy=acc, cpu_accuracy=cpu_acc,
+               jax_test_bound=ACC_BOUND, buckets=serving["num_compiled"],
+               new_buckets_second_wave=serving["new_buckets"],
+               wave_ms=serving["serve_ms"], requests=serving["requests"],
+               request_ms=req_ms, request_ms_median=statistics.median(req_ms),
+               max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=True,
+               card_s=card_s, cpu_s=cpu_s, launches=launches,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[example_inference] {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_example_large_graph(card):
+    """The large-graph twin (``examples/large_graph_torch.py``) at its
+    default n = 65,536 (983,040 edges, F = 64, hidden 128, bf16): its 30
+    steps counted (K1 and K4 every step), ms/step and edges/s as it prints
+    them; step one repeated bit for bit and held to the CPU (the same
+    weights, the kernels' plain versions); LARGE_TIMED_STEPS more steps
+    timed by CUDA events and 3 profiled for the busy time and idle share."""
+    import examples.large_graph_torch as lg
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    loss = lg.main(device="cuda")
+    launches = read_counts()
+    run = dict(lg.LAST_RUN)
+    steps = run["steps"]
+    per_step = {k: v / steps for k, v in launches.items()}
+    if not (np.isfinite(loss) and per_step["spmm_csr"] >= 1
+            and per_step["sorted_segment_sum"] >= 1):
+        raise AssertionError(f"large-graph twin: loss {loss}, launches "
+                             f"{launches} over {steps} steps (K1 and K4 "
+                             "every step)")
+
+    model, batch, y, n_edges = lg.setup(device="cuda")
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    # the twin's label has a loss of 0 at the initial weights (a margin of
+    # ~25 in bf16 logits, nothing to compare): step one is held on the next
+    # label
+    y1 = (y + 1) % 3
+    repeat = step_one_repeats("example_large_graph",
+                              lambda: _step_one_grads(model, batch, y1))
+    loss0, grads0 = _step_one_grads(model, batch, y1)
+    cpu_model, cpu_batch, _, _ = lg.setup(device="cpu")
+    cpu_model.load_state_dict(init)
+    cpu_loss, cpu_grads = _step_one_grads(cpu_model, cpu_batch, y1.cpu())
+    loss_err, grad_err = _step_one_errors(
+        "large-graph step one", float(loss0),
+        {k: v.cpu() for k, v in grads0.items()}, float(cpu_loss), cpu_grads)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    step_ms = [_timed_step(lambda: lg.train_step(model, opt, batch, y))[0]
+               for _ in range(LARGE_TIMED_STEPS)]
+    med = statistics.median(step_ms)
+    prof = _idle_profile(lambda: lg.train_step(model, opt, batch, y), 3, med,
+                         "example_large_graph", table=False)
+    row = dict(card=card, nodes=batch.num_nodes, edges=n_edges, steps=steps,
+               loss=loss, ms_per_step=run["ms_per_step"],
+               edges_per_s=run["edges_per_s"], step_ms=step_ms,
+               step_ms_median=med, busy_ms_per_step=prof["busy_ms_per_step"],
+               idle_share=prof["idle_share"], launches=launches,
+               launches_per_step=per_step, step1_loss=float(loss0),
+               step1_cpu_loss=float(cpu_loss), loss_rel_err=loss_err,
+               grad_rel_err=grad_err, step1_repeat_bit_equal=repeat,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[example_large_graph] {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_time_and_mem(card):
+    """The timing twin (``examples/time_and_mem_test_torch.py``): all 15
+    aliases at sizes (50, 200) on the card, fwd and fwd+bwd ms, memory now
+    and at the peak; the phase fails if any alias failed.  Each alias's
+    forward value (Σ x_pool² + losses) on the card is repeated bit for bit
+    and held to the CPU's on the same weights and batch (within
+    TIMED_VALUE_TOL relative; the greedy ranks and top-k selections of
+    the card replayed on the CPU)."""
+    import examples.time_and_mem_test_torch as tm
+    from tgp_tpu_torch.data.loaders import GraphLoader
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    results = tm.main(device="cuda")
+    launches = read_counts()
+    failed = [r for r in results if "error" in r]
+    if failed or len(results) != 2 * len(tm.POOLERS_TIMED):
+        raise AssertionError(f"time_and_mem: {len(failed)} aliases failed: "
+                             f"{failed}")
+    checks = []
+    for n in (50, 200):
+        graphs = [tm.erdos_renyi_graph(n, p=min(8.0 / n, 0.5),
+                                       num_features=16, seed=i)
+                  for i in range(4)]
+        batches = {d: next(iter(GraphLoader(graphs, batch_size=4, device=d)))
+                   for d in ("cuda", "cpu")}
+        for alias in tm.POOLERS_TIMED:
+            pooler = tm.make_pooler(alias, batches["cuda"])
+            ranks, sels = [], []
+            with torch.no_grad():
+                with pinned_ranks(record=ranks), \
+                        pinned_selection(record=sels, topk=True):
+                    got = tm.pooled_value(pooler, batches["cuda"])
+                again = tm.pooled_value(pooler, batches["cuda"])
+                cpu = tm.make_pooler(alias, batches["cpu"])
+                cpu.load_state_dict({k: v.cpu() for k, v in
+                                     pooler.state_dict().items()})
+                with pinned_ranks(replay=ranks), \
+                        pinned_selection(replay=sels, topk=True):
+                    ref = tm.pooled_value(cpu, batches["cpu"])
+            err = abs(float(got) - float(ref)) / max(abs(float(ref)), 1e-30)
+            if not torch.equal(got, again) or err > TIMED_VALUE_TOL:
+                raise AssertionError(
+                    f"time_and_mem {alias} n={n}: card {float(got)} (repeat "
+                    f"{float(again)}) vs CPU {float(ref)}, rel err {err}")
+            checks.append(dict(alias=alias, n=n, rel_err_vs_cpu=err))
+    row = dict(card=card, results=results, value_checks=checks,
+               value_tol=TIMED_VALUE_TOL, launches=launches,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[time_and_mem] {json.dumps(row)}", flush=True)
+    return row
+
+
+def _pooled_step(params, opt, fwd, y):
+    """One SGD/Adam step of the pooled model's cross-entropy on one rank
+    (``fwd(params) → logits``): the single-device step."""
+    opt.zero_grad(set_to_none=True)
+    loss = torch.nn.functional.cross_entropy(fwd(params)[None],
+                                             y.reshape(1).long())
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def phase_parallel(card, batch):
+    """``parallel/`` on a world of one rank in this process, over NCCL on
+    the card (no fallback: without NCCL the phase fails).  The sharded SpMM
+    on the serving graph (N = 65,536, E = 1M, F = 128, f32; ``batch`` is
+    its first request, collated) against the port's ``spmm``, forward and
+    gradient, K1 counted, a repeat bit-equal, the ring variant equal to
+    the gather variant with nothing sent; the sharded pooled forward at
+    ``measure_pooled_scaling``'s defaults against
+    ``reference_pooled_forward`` on the card; PARALLEL_STEPS data-parallel
+    steps of the served model against the same steps without the layer
+    (bit-equal at one rank) and PARALLEL_STEPS hybrid steps on a 1 × 1
+    mesh against the single-device twin's steps; the scaling harness at
+    D = 1.  One rank cannot show multi-GPU behaviour: the collectives run
+    (the all_gathers and psums through NCCL) but move nothing between
+    cards."""
+    import torch.distributed as dist
+
+    from tgp_tpu_torch.ops.sparse import spmm
+    from tgp_tpu_torch.parallel import _collectives as C
+    from tgp_tpu_torch.parallel import spmm as PS
+    from tgp_tpu_torch.parallel.launch import single_rank_world
+    from tgp_tpu_torch.parallel.multihost import (
+        device_put_hybrid, make_hybrid_mesh, make_hybrid_pooled_train_step,
+        stack_group_graphs)
+    from tgp_tpu_torch.parallel.pooled_model import (
+        init_pooled_params, make_sharded_pooled_forward,
+        prepare_sharded_graph, reference_pooled_forward)
+    from tgp_tpu_torch.parallel.scaling import (_random_regular_graph,
+                                                measure_pooled_scaling)
+    from tgp_tpu_torch.parallel.train import (make_dp_train_step, make_mesh,
+                                              stack_batches)
+
+    t_phase = time.perf_counter()
+    if not dist.is_nccl_available():
+        raise AssertionError("[parallel] needs NCCL; this torch has none")
+
+    def close(name, got, ref, tol=PARALLEL_TOL):
+        scale = max(float(ref.float().abs().max()), 1e-30)
+        err = float((got.float() - ref.float()).abs().max()) / scale
+        if not (torch.isfinite(got.float()).all() and err <= tol):
+            raise AssertionError(f"[parallel] {name}: error {err} of the "
+                                 f"scale {scale} > {tol}")
+        return err
+
+    row = dict(card=card)
+    with single_rank_world("nccl"):
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"[parallel] backend {dist.get_backend()}")
+        mesh = make_mesh(1, axis="gp")
+        group = mesh.get_group("gp")
+
+        # ---- the sharded SpMM on the serving graph ----------------------
+        x_np, ei = request_graph(7)
+        w_np = np.random.default_rng(8).normal(size=N_EDGES).astype(
+            np.float32)
+        S, R, W, n_pad, rows_per = PS.partition_edges(
+            ei[0], ei[1], w_np, N_NODES, 1, device="cuda")
+        fn = PS.make_sharded_spmm(mesh, rows_per)
+        x = torch.tensor(x_np, device="cuda").requires_grad_()
+        g = torch.randn(N_NODES, FEATURES, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(9))
+        fn(x.detach(), S[0], R[0], W[0])  # the layout, made once
+        reset_counts()
+        C.COMM_LOG.clear()
+        out = fn(x, S[0], R[0], W[0])
+        (out * g).sum().backward()
+        spmm_launches = read_counts()
+        comm = [(op, list(shape), nbytes) for op, shape, _, nbytes
+                in C.COMM_LOG]
+        dx = x.grad.clone()
+        if spmm_launches["spmm_csr"] != 2:
+            raise AssertionError(f"[parallel] sharded SpMM launched "
+                                 f"{spmm_launches}, want K1 twice")
+        s_t = torch.as_tensor(ei[0], device="cuda")
+        r_t = torch.as_tensor(ei[1], device="cuda")
+        w_t = torch.as_tensor(w_np, device="cuda")
+        x.grad = None
+        ref = spmm(s_t, r_t, w_t, x, N_NODES)
+        (ref * g).sum().backward()
+        spmm_err = close("sharded SpMM", out.detach(), ref.detach())
+        dx_err = close("sharded SpMM's gradient", dx, x.grad)
+        repeat = torch.equal(out.detach(), fn(x.detach(), S[0], R[0], W[0]))
+        if not repeat:
+            raise AssertionError("[parallel] a repeated sharded SpMM differs")
+        sharded_ms = median_ms(lambda: fn(x.detach(), S[0], R[0], W[0]),
+                               None)
+        spmm_ms = median_ms(lambda: spmm(s_t, r_t, w_t, x.detach(),
+                                         N_NODES), None)
+        S2, R2, W2, _, _ = PS.partition_edges_2d(ei[0], ei[1], w_np, N_NODES,
+                                                 1, device="cuda")
+        ring = PS.make_ring_halo_spmm(mesh, rows_per, 1)
+        C.COMM_LOG.clear()
+        ring_out = ring(x.detach(), S2[0], R2[0], W2[0])
+        ring_sends = [e for e in C.COMM_LOG if e[0] == "ppermute"]
+        if ring_sends or not torch.equal(ring_out, out.detach()):
+            raise AssertionError(f"[parallel] the ring at one rank sent "
+                                 f"{ring_sends} or differs from the gather")
+        row.update(spmm_launches=spmm_launches, spmm_comm=comm,
+                   spmm_rel_err=spmm_err, spmm_dx_rel_err=dx_err,
+                   spmm_repeat_bit_equal=repeat, sharded_spmm_ms=sharded_ms,
+                   spmm_ms=spmm_ms, ring_equals_gather=True)
+        del x, g, out, ref, dx
+
+        # ---- the sharded pooled forward at the scaling defaults ---------
+        n, feats, hidden = 1 << 16, 64, 64
+        s_np, r_np = _random_regular_graph(n, 8, 0)
+        xs = torch.tensor(np.random.default_rng(1).normal(
+            size=(n, feats)).astype(np.float32), device="cuda")
+        Sp, Rp, Wp, n_pad, rows_per = prepare_sharded_graph(
+            s_np, r_np, None, n, 1, device="cuda")
+        params = init_pooled_params(torch.Generator().manual_seed(0), feats,
+                                    hidden, 3, device="cuda")
+        fwd, ks = make_sharded_pooled_forward(
+            mesh, rows_per=rows_per, n_pad=n_pad, num_valid=n, ratio=0.5)
+        with torch.no_grad():
+            fwd(params, xs, Sp[0], Rp[0], Wp[0])
+            reset_counts()
+            logits, h = fwd(params, xs, Sp[0], Rp[0], Wp[0])
+            pooled_launches = read_counts()
+            logits2, h2 = fwd(params, xs, Sp[0], Rp[0], Wp[0])
+            ref_logits, ref_h = reference_pooled_forward(
+                params, xs, s_np, r_np, None, n, ks)
+        pooled_repeat = torch.equal(logits, logits2) and torch.equal(h, h2)
+        if not pooled_repeat or pooled_launches["spmm_csr"] != 1:
+            raise AssertionError(f"[parallel] pooled forward: repeat "
+                                 f"bit-equal {pooled_repeat}, launches "
+                                 f"{pooled_launches} (want K1 once)")
+        # the supernodes' order may differ where two scores are within
+        # rounding: compare the permutation-invariant readout
+        pooled_err = close("pooled forward's logits", logits, ref_logits)
+        h_err = close("pooled forward's supernode sums", h.sum(0),
+                      ref_h.sum(0))
+        pooled_ms = median_ms(lambda: fwd(params, xs, Sp[0], Rp[0], Wp[0]),
+                              None)
+        row.update(pooled_ks=list(ks), pooled_launches=pooled_launches,
+                   pooled_logits_rel_err=pooled_err,
+                   pooled_h_sum_rel_err=h_err,
+                   pooled_repeat_bit_equal=pooled_repeat,
+                   pooled_forward_ms=pooled_ms)
+
+        # ---- data-parallel steps of the served model at one rank --------
+        # the label of the smallest initial logit: a loss to differentiate
+        with torch.no_grad():
+            yy = build_model("cuda")(batch)[0].float().argmin(-1)
+        runs = []
+        for dp in (True, False):
+            model = build_model("cuda")
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+            def loss_fn(p, b, target, model=model):
+                logits_, _ = model(b)
+                return torch.nn.functional.cross_entropy(logits_, target)
+
+            if dp:  # the main path, counted
+                step = make_dp_train_step(loss_fn, opt, mesh, axis="gp")
+                sb, sy = stack_batches([batch]), yy[None]
+                reset_counts()
+                losses = [float(step(list(model.parameters()), sb, sy))
+                          for _ in range(PARALLEL_STEPS)]
+                dp_launches = read_counts()
+            else:
+                losses = [float(_train_step(model, opt, batch, yy, False))
+                          for _ in range(PARALLEL_STEPS)]
+            runs.append((losses, {k: v.detach().clone() for k, v
+                                  in model.state_dict().items()}))
+        dp_equal = runs[0][0] == runs[1][0] and all(
+            torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
+        if not dp_equal:
+            raise AssertionError(f"[parallel] DP steps at one rank differ "
+                                 f"from the plain steps: {runs[0][0]} vs "
+                                 f"{runs[1][0]}")
+        row.update(dp_losses=runs[0][0], dp_bit_equal_to_single=dp_equal,
+                   dp_launches=dp_launches)
+
+        # ---- hybrid steps on a 1 × 1 mesh ---------------------------------
+        hmesh = make_hybrid_mesh(1, 1)
+        Sh, Rh, Wh_, n_pad, rows_per = stack_group_graphs(
+            [prepare_sharded_graph(s_np, r_np, None, n, 1, device="cuda")])
+        yh = torch.tensor([2], device="cuda")
+        args = device_put_hybrid(hmesh, xs[None], Sh, Rh, Wh_, yh)
+        hp = init_pooled_params(torch.Generator().manual_seed(1), feats,
+                                hidden, 3, num_levels=2, device="cuda")
+        start = {k: v.detach().clone() for k, v in hp.items()}
+        hopt = torch.optim.SGD(hp.values(), lr=HYBRID_LR)
+        hstep, hks = make_hybrid_pooled_train_step(
+            hmesh, hopt, rows_per=rows_per, n_pad=n_pad, num_valid=n,
+            num_levels=2)
+        reset_counts()
+        h_losses = [float(hstep(hp, *args)) for _ in range(PARALLEL_STEPS)]
+        hybrid_launches = read_counts()
+        # step one again from the same weights: the same bits
+        rp = {k: v.clone().requires_grad_() for k, v in start.items()}
+        r_opt = torch.optim.SGD(rp.values(), lr=HYBRID_LR)
+        hstep_again, _ = make_hybrid_pooled_train_step(
+            hmesh, r_opt, rows_per=rows_per, n_pad=n_pad, num_valid=n,
+            num_levels=2)
+        hybrid_repeat = float(hstep_again(rp, *args)) == h_losses[0]
+        sp = {k: v.clone().requires_grad_() for k, v in start.items()}
+        s_opt = torch.optim.SGD(sp.values(), lr=HYBRID_LR)
+        s_losses = [float(_pooled_step(
+            sp, s_opt, lambda p: reference_pooled_forward(
+                p, xs, s_np, r_np, None, n, hks)[0], yh))
+            for _ in range(PARALLEL_STEPS)]
+        hybrid_err = max(close(f"hybrid weights {k}", hp[k].detach(),
+                               sp[k].detach()) for k in hp)
+        # a saturated step has a loss of 0 on both sides: relative to 1
+        loss_err = max(abs(a - b) / max(abs(b), 1.0)
+                       for a, b in zip(h_losses, s_losses))
+        if loss_err > PARALLEL_TOL or not hybrid_repeat:
+            raise AssertionError(f"[parallel] hybrid losses {h_losses} vs "
+                                 f"single-device {s_losses}; repeat "
+                                 f"bit-equal {hybrid_repeat}")
+        row.update(hybrid_losses=h_losses, single_losses=s_losses,
+                   hybrid_lr=HYBRID_LR,
+                   hybrid_loss_rel_err=loss_err,
+                   hybrid_weights_rel_err=hybrid_err,
+                   hybrid_repeat_bit_equal=hybrid_repeat,
+                   hybrid_launches=hybrid_launches)
+
+        # ---- the scaling harness at D = 1 ---------------------------------
+        scaling = measure_pooled_scaling(device_counts=(1,))
+        row.update(scaling=scaling)
+    launches = {k: spmm_launches[k] + pooled_launches[k] + dp_launches[k]
+                + hybrid_launches[k] for k in spmm_launches}
+    row.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    print(f"[parallel] {json.dumps(row)}", flush=True)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3540,13 +3981,18 @@ def main(argv=None) -> int:
             phase_checkpoint(card, model, m_batch, d_graphs)
         del model, m_batch
     train_tu = phase_train_tu(card)
+    ex_inference = phase_example_inference(card)
+    ex_large = phase_example_large_graph(card)
+    timed = phase_time_and_mem(card)
+    parallel = phase_parallel(card, batch)
     # the main paths' launches, each kernel summed over every path that
     # runs it (and K2 in the locality path)
     all_runs = (serving, sparse, serving_sag, train_sag, *small.values(),
                 *serving_cl.values(), *train_cl.values(), train,
                 serving_mc, train_mc, *mincut.values(), zoo,
                 *serving_aggr.values(), serving_pre, *train_pre.values(),
-                host_pools, cluster_ex, *cluster_train.values(), train_tu)
+                host_pools, cluster_ex, *cluster_train.values(), train_tu,
+                ex_inference, ex_large, timed, parallel)
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -3609,7 +4055,16 @@ def main(argv=None) -> int:
              f"{len(cluster_ex['rows'])} twins at their defaults"),
             *((f"{which} training", r, f"{CLUSTER_TRAIN_STEPS} steps")
               for which, r in cluster_train.items()),
-            ("TU training", train_tu, "1 epoch"))
+            ("TU training", train_tu, "1 epoch"),
+            ("inference twin", ex_inference,
+             f"its training and {ex_inference['requests']} graphs served "
+             "twice"),
+            ("large-graph twin", ex_large, f"{ex_large['steps']} steps"),
+            ("timing twin", timed,
+             f"{len(timed['results'])} aliases and sizes timed"),
+            ("parallel at one rank", parallel,
+             f"a sharded SpMM and its gradient, a pooled forward, "
+             f"{PARALLEL_STEPS} DP and {PARALLEL_STEPS} hybrid steps"))
     print("launches: " + "; ".join(
         f"{name} K1 {r['launches']['spmm_csr']}, K2 "
         f"{r['launches']['segment_sum_sorted']}, K3 "

@@ -1909,3 +1909,79 @@ def test_cuda_cluster_models_step_matches_cpu_and_repeats(which):
     for k, g in g_c.items():
         scale = max(float(g.abs().max()), 1e-30)
         assert float((g_g[k].cpu() - g).abs().max()) <= 1e-3 * scale, k
+
+
+def _sharded_case(seed, n=300, e=2500, F=64):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, n, e), rng.integers(0, n, e),
+            rng.normal(size=e).astype(np.float32),
+            rng.normal(size=(n, F)).astype(np.float32), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_sharded_spmm_runs_k1_and_matches_its_plain_route(dtype):
+    """``parallel.spmm`` on a 1-rank NCCL world: the rank's sum on K1 (one
+    launch forward, one for the gradient of ``x``) against the same call on
+    CPU tensors (K1's plain version) — within 1e-5 of the output's largest
+    |value| in f32, 1e-2 in bf16 — and a repeat equal bit for bit."""
+    from tgp_tpu_torch.parallel import spmm as PS
+    from tgp_tpu_torch.parallel.launch import single_rank_world
+    from tgp_tpu_torch.parallel.train import make_mesh
+
+    _skip_without_card()
+    s, r, w, x, n = _sharded_case(5)
+    dt = getattr(torch, dtype)
+    with single_rank_world("nccl"):
+        mesh = make_mesh(1, axis="gp")
+        assert mesh.device_type == "cuda"
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            S, R, W, n_pad, rows_per = PS.partition_edges(s, r, w, n, 1,
+                                                          device=dev)
+            xs = torch.tensor(x, device=dev).to(dt).requires_grad_()
+            layout = PS.CsrLayout(S[0], R[0], rows_per, n_pad)
+            before = K.spmm_csr.launches
+            out = layout.spmm(xs, W[0])
+            out.float().sum().backward()
+            runs[dev] = (out.detach(), xs.grad)
+            if dev == "cuda":
+                assert K.spmm_csr.launches - before == 2
+                fn = PS.make_sharded_spmm(mesh, rows_per)
+                again = fn(xs.detach(), S[0], R[0], W[0])
+                assert torch.equal(again, fn(xs.detach(), S[0], R[0], W[0]))
+                assert torch.equal(again, out.detach())
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for got, ref in zip(runs["cuda"], runs["cpu"]):
+        scale = max(float(ref.float().abs().max()), 1e-30)
+        assert float((got.cpu().float() - ref.float()).abs().max()) \
+            <= tol * scale
+
+
+@pytest.mark.cuda
+def test_cuda_ring_at_one_rank_is_the_identity():
+    """At D = 1 the ring has one step, sends nothing (NCCL does not send
+    to its own rank) and equals the gather variant bit for bit."""
+    from tgp_tpu_torch.parallel import _collectives as C
+    from tgp_tpu_torch.parallel import spmm as PS
+    from tgp_tpu_torch.parallel.launch import single_rank_world
+    from tgp_tpu_torch.parallel.train import make_mesh
+
+    _skip_without_card()
+    s, r, w, x, n = _sharded_case(6)
+    with single_rank_world("nccl"):
+        mesh = make_mesh(1, axis="gp")
+        S, R, W, n_pad, rows_per = PS.partition_edges_2d(s, r, w, n, 1,
+                                                         device="cuda")
+        xs = torch.tensor(x, device="cuda")
+        C.COMM_LOG.clear()
+        ring = PS.make_ring_halo_spmm(mesh, rows_per, 1)(xs, S[0], R[0],
+                                                         W[0])
+        assert not [e for e in C.COMM_LOG if e[0] == "ppermute"]
+        S1, R1, W1, _, _ = PS.partition_edges(s, r, w, n, 1, device="cuda")
+        gather = PS.make_sharded_spmm(mesh, rows_per)(xs, S1[0], R1[0],
+                                                      W1[0])
+        assert torch.equal(ring, gather)
+        C.COMM_LOG.clear()
+        assert torch.equal(C.ppermute(xs, mesh.get_group("gp")), xs)
+        assert not C.COMM_LOG

@@ -9,7 +9,12 @@ logits, and step one's loss, gradients and Adam update against optax),
 the classification twin's datasets (equal to the JAX example's) and
 checkpoints, and the clustering, TVGNN and node-classification twins at
 the JAX smoke tests' epochs and bounds (NMI above 0.5, accuracy above
-0.6)."""
+0.6); the serving twin (``inference``, six epochs, accuracy above 0.6 as
+``test_examples_smoke.py::test_inference_serving`` asks, and no new bucket
+on the second wave), the large-graph twin at n = 256 (a finite loss, its
+graph equal to the JAX example's) and the timing twin (its ER graphs equal
+to ``tests/utils_graphs.py``'s, two aliases without a failure, a failing
+alias returned with its error)."""
 
 import functools
 import re
@@ -289,3 +294,55 @@ def test_precoarsened_net_matches_jax(schedule):
     opt.step()
     for k, p in net.named_parameters():
         assert float((p.detach() - jnew[k]).abs().max()) <= 1e-6, k
+
+
+
+def test_inference_twin_serves_as_jax_test_asks():
+    import examples.inference_torch as inf
+
+    acc = inf.main("topk", epochs=6, verbose=False, device="cpu")
+    assert acc > 0.6
+    assert inf.LAST_SERVING["new_buckets"] == 0
+    assert inf.LAST_SERVING["num_compiled"] >= 1
+    # the reversed second wave batches each graph with other neighbours:
+    # the same logits up to the order of their sums
+    np.testing.assert_allclose(inf.LAST_SERVING["logits_reversed"],
+                               inf.LAST_SERVING["logits"], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_large_graph_twin_trains_and_matches_jax_graph():
+    import examples.large_graph as j_large
+    import examples.large_graph_torch as large
+
+    got, ref = large.make_community_graph(256, 6), \
+        j_large.make_community_graph(256, 6)
+    for a, b in ((got[0][0], ref[0][0]), (got[0][1], ref[0][1]),
+                 (got[1], ref[1]), (got[2], ref[2])):
+        np.testing.assert_array_equal(a, b)
+    loss = large.main(n=256, avg_degree=6, device="cpu")
+    assert np.isfinite(loss)
+    assert large.LAST_RUN["steps"] == 5
+    assert large.LAST_RUN["n_edges"] == 256 * 6
+
+
+def test_time_and_mem_twin_times_aliases_and_returns_failures():
+    import examples.time_and_mem_test_torch as tm
+    from tests.utils_graphs import erdos_renyi_graph
+
+    import examples.time_and_mem_test as j_tm
+
+    assert tm.POOLERS_TIMED == j_tm.POOLERS_TIMED
+    for n, p, seed in ((50, 0.16, 0), (200, 0.04, 3), (2, 0.0, 1)):
+        for a, b in zip(tm.erdos_renyi_graph(n, p, 16, seed),
+                        erdos_renyi_graph(n, p, 16, seed)):
+            np.testing.assert_array_equal(a, b)
+    out = tm.main(sizes=(50,), poolers=["topk", "mincut"], device="cpu",
+                  iters=2)
+    assert [r["pooler"] for r in out] == ["topk", "mincut"]
+    for r in out:
+        assert "error" not in r, r
+        assert r["fwd_ms"] > 0 and r["fwd_bwd_ms"] > 0
+    bad = tm.main(sizes=(50,), poolers=["nopool", "bogus"], device="cpu",
+                  iters=1)
+    assert "error" not in bad[0] and "unknown pooler" in bad[1]["error"]

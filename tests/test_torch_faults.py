@@ -101,6 +101,60 @@ def test_ops_reexports_jax_names():
     assert all(callable(getattr(t_ops, n)) for n in t_ops.__all__)
 
 
+#: modules of ``tgp_tpu`` whose names the port does not carry: the Pallas
+#: kernels (ported as ``csrc/*.cu`` with ``ops/kernels/*.py``), the native
+#: library's binary, and the two sharded pooling modules still to port
+_NOT_MIRRORED = ("tgp_tpu.ops.pallas", "tgp_tpu._native.libtgp_native",
+                 "tgp_tpu.parallel.dense_pool", "tgp_tpu.parallel.sparse_pool")
+
+
+def _jax_modules_with_all():
+    import importlib
+    import pkgutil
+
+    import tgp_tpu
+
+    names = ["tgp_tpu"]
+    for m in pkgutil.walk_packages(tgp_tpu.__path__, "tgp_tpu."):
+        if not m.name.startswith(_NOT_MIRRORED):
+            names.append(m.name)
+    return [n for n in names
+            if hasattr(importlib.import_module(n), "__all__")]
+
+
+@pytest.mark.parametrize("name", _jax_modules_with_all())
+def test_port_exports_every_jax_name(name):
+    """JAX's ``__all__`` ⊆ the names of the port's module of the same path
+    (``tgp_tpu.ops`` is one case: its 20 names)."""
+    import importlib
+
+    jm = importlib.import_module(name)
+    tm = importlib.import_module("tgp_tpu_torch" + name[len("tgp_tpu"):])
+    missing = [n for n in jm.__all__ if not hasattr(tm, n)]
+    assert not missing, f"{tm.__name__} lacks {missing}"
+    if hasattr(tm, "__all__"):
+        assert set(jm.__all__) <= set(tm.__all__), name
+
+
+def test_graclus_accepts_reduce_red_op_and_ignores_it():
+    """JAX's ``GraclusPooling`` has a ``reduce_red_op`` field that it never
+    reads; the port accepts the argument on direct construction and pools
+    the same as without it."""
+    from tgp_tpu.poolers.graclus import GraclusPooling as JGraclus
+    from tgp_tpu_torch.poolers.graclus import GraclusPooling
+
+    graphs = _dup_graphs(3)
+    tb = t_from(graphs, **CPU)
+    got = GraclusPooling(reduce_red_op="mean")(tb)
+    ref = GraclusPooling()(tb)
+    jout = JGraclus(reduce_red_op="mean").apply({}, j_from(graphs))
+    assert got.graph.x.shape == ref.graph.x.shape
+    assert torch.equal(got.graph.x, ref.graph.x)
+    np.testing.assert_allclose(_np(got.graph.x), _np(jout.graph.x),
+                               atol=1e-5, rtol=1e-5)
+    assert GraclusPooling(reduce_red_op="max").reduce_red_op == "max"
+
+
 def _dense_batch():
     graphs = _dup_graphs(2, feat=8)
     return prepare_batch(t_from(graphs, **CPU), densify=True)

@@ -1,5 +1,7 @@
 """Connect operators."""
-from tgp_tpu_torch.connect.base import (ConnectConfig, dense_connect_unbatched,
+from tgp_tpu_torch.connect.base import (ConnectConfig, dense_connect,
+                                        dense_connect_unbatched,
                                         sparse_connect)
 
-__all__ = ["ConnectConfig", "sparse_connect", "dense_connect_unbatched"]
+__all__ = ["ConnectConfig", "dense_connect", "dense_connect_unbatched",
+           "sparse_connect"]

@@ -5,7 +5,9 @@ soft-cluster pooler or BNPool, or one without parameters), ``DenseTopkClassifier
 ``Net`` of ``examples/classification_aggr_reduce.py``, the
 ``PrecoarsenedNet`` of ``examples/pre_coarsening.py``, a
 ``ClusteringModel`` (GCN or GTV layers) and a ``PoolLiftNodeClassifier``
-over to the port's modules, so both packages compute the same function.
+over to the port's modules, so both packages compute the same function;
+and the plain parameter dict of ``tgp_tpu.parallel.pooled_model``
+(:func:`pooled_params_from_numpy`).
 A flax gradient tree has the same paths and maps the same way, so
 gradients compare leaf by leaf."""
 
@@ -17,7 +19,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax"]
+__all__ = ["params_from_flax", "pooled_params_from_numpy"]
 
 #: the PANNet's, the aggregation Net's, the PrecoarsenedNet's and the
 #: clustering and autoencoder models' flax module names → the port's
@@ -191,3 +193,13 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise KeyError(f"no port parameter for flax leaf {path!r}")
     out.update(_stack_gates(gates))
     return out
+
+
+def pooled_params_from_numpy(params: Mapping[str, Any], *,
+                             device="cpu") -> Dict[str, torch.Tensor]:
+    """The sharded pooled model's parameters (``init_pooled_params``' dict:
+    ``W1 b1 Wh bh p{l} W{l+2} b{l+2}``, numpy or JAX arrays; the same
+    names and layouts in both packages) as float32 leaf tensors on
+    ``device`` that require a gradient, in the same key order."""
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device,
+                            requires_grad=True) for k, v in params.items()}

@@ -1,0 +1,5 @@
+"""parallel subsystem: ``shard_map`` over a JAX mesh becomes SPMD over the
+ranks of a ``torch.distributed`` process group (a ``DeviceMesh`` axis),
+NCCL on cards and gloo on the CPU.  ``spmm``, ``train``, ``pooled_model``,
+``scaling`` and ``multihost`` mirror JAX's modules; ``launch.spawn_world``
+starts a world of processes."""

@@ -20,17 +20,19 @@ __all__ = ["GraclusPooling"]
 
 class GraclusPooling(SRCPooling):
     """``"graclus"``.  ``weighted=False`` ranks every edge alike (edge
-    order).  JAX's ``reduce_red_op`` field, which its pooler never reads,
-    is not ported."""
+    order).  ``reduce_red_op`` is accepted and not read, as in JAX, whose
+    pooler has the field and always sums."""
 
     IS_PRECOARSENABLE = True
 
-    def __init__(self, weighted: bool = True, s_inv_op: str = "transpose",
+    def __init__(self, weighted: bool = True, reduce_red_op: str = "sum",
+                 s_inv_op: str = "transpose",
                  connect_red_op: str = "sum", remove_self_loops: bool = True,
                  degree_norm: bool = False, edge_weight_norm: bool = False,
                  lift_op: str = "precomputed", lift_red_op: str = "sum"):
         super().__init__(lift_op=lift_op, lift_red_op=lift_red_op)
         self.weighted = weighted
+        self.reduce_red_op = reduce_red_op
         self.s_inv_op = s_inv_op
         self.connect_cfg = ConnectConfig(
             reduce_op=connect_red_op, remove_self_loops=remove_self_loops,
