@@ -193,7 +193,17 @@ each of which raises on failure:
    variant, the sharded pooled forward at the scaling harness's defaults
    against its single-device twin, 3 data-parallel steps (bit-equal to
    the plain steps) and 3 hybrid steps on a 1 × 1 mesh against the
-   single-device twin's, and the scaling harness at D = 1.
+   single-device twin's, and the scaling harness at D = 1;
+18. ``parallel/dense_pool.py`` and ``parallel/sparse_pool.py``:
+   ``[parallel_pool]`` is a world of one rank over NCCL in this process on
+   the serving graph (N = 65,536, E = 1M, F = 128, f32): the dense
+   family's seven aliases (K = 16, BNPool with ``per_node_keys=True`` and
+   one negative an edge) and ``TopkPoolModel`` with top-k and SAG (hidden
+   128, ratio 0.5), each sharded forward held to the same model's
+   single-device forward on the card (values and losses within 1e-4, and
+   for MinCut, BNPool and both sparse models the gradients), repeated bit
+   for bit, timed, with K1 and K4 a forward; two K1 ``[kernels]`` rows at
+   the dense family's widths (F = 16 and 17, f32).
 
 Every training phase first runs step one twice from the same weights,
 batch and generator states and fails unless the loss and every gradient
@@ -1260,11 +1270,13 @@ def pinned_selection(record=None, replay=None, topk=False):
     order, their weights the scores of this run: the CPU reference then
     votes from the card's selection.  The scores are tanh'd through bf16
     features, so an independent CPU top-k may break exact ties the other
-    way.  ``topk``: the top-k pooler's selections too (the aggregation
-    Net's: an f32 score near a tie may rank the other way on the CPU)."""
+    way.  ``topk``: the top-k and SAG poolers' selections too (the
+    aggregation Net's: an f32 score near a tie may rank the other way on
+    the CPU; the sharded top-k model's, ``[parallel_pool]``)."""
+    from tgp_tpu_torch.poolers import sag
     from tgp_tpu_torch.select import maxcut, topk as topk_mod
 
-    mods = (maxcut, topk_mod) if topk else (maxcut,)
+    mods = (maxcut, topk_mod, sag) if topk else (maxcut,)
     reals = {m: m.topk_select_from_scores for m in mods}
     queue = list(replay or [])
 
@@ -3865,6 +3877,358 @@ def phase_parallel(card, batch):
     return row
 
 
+# ---------------------------------------------------------------------------
+# parallel/dense_pool.py and parallel/sparse_pool.py on a world of one rank
+# ---------------------------------------------------------------------------
+
+#: the dense family's clusters (the dense cells' K) and the sharded
+#: pooling checks: values and gradients against the single-device
+#: forward within POOL_TOL of their largest |value|, losses within
+#: POOL_TOL relative (1e-6 absolute at 0)
+POOL_K, POOL_TOL = 16, 1e-4
+POOL_DENSE = ("mincut", "diff", "dmon", "hosc", "jb", "acc", "bnpool")
+POOL_GRADS = ("mincut", "bnpool")
+POOL_SPARSE = ("topk", "sag")
+#: the base seed of BNPool's per-node draws and its negatives' seed
+POOL_SAMPLE_SEED, POOL_NEG_SEED = 17, 11
+
+
+def _pool_graph():
+    """The serving graph (``request_graph(7)``: N = 65,536, E = 1M, F =
+    128) with weights in [0.5, 1.5), as the sharded pooling tests make
+    them."""
+    x, ei = request_graph(7)
+    w = np.random.default_rng(8).uniform(0.5, 1.5, N_EDGES).astype(
+        np.float32)
+    return x, ei[0], ei[1], w
+
+
+def phase_kernels_parallel_pool():
+    """K1 at the dense family's widths on the serving graph's partition at
+    one rank (f32): the ``SᵀAS`` messages (F = POOL_K, over the receiver
+    layout) and HOSC's ``[S | 1]`` chain (F = POOL_K + 1, over the
+    senders), each beside ``torch.sparse.mm`` on the same layout, run
+    twice and required bit-equal."""
+    from tgp_tpu_torch.ops.kernels import segment_spmm as K
+    from tgp_tpu_torch.parallel.spmm import CsrLayout, partition_edges
+
+    _, s, r, w = _pool_graph()
+    S, R, W, n_pad, rows = partition_edges(s, r, w, N_NODES, 1,
+                                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    modes = {}
+    for F, layout, what in (
+            (POOL_K, CsrLayout(S[0], R[0], rows, n_pad), "S^T A S messages"),
+            (POOL_K + 1, CsrLayout(R[0], S[0], n_pad, n_pad),
+             "HOSC [S|1] onto senders")):
+        E = layout.senders.shape[0]
+        x = torch.rand(n_pad, F, generator=gen, device="cuda")
+        w_s = W[0][layout.order].contiguous()
+        idx, rp = layout.senders, layout.row_ptr
+        a = torch.sparse_csr_tensor(rp, idx, w_s, size=(layout.num_rows,
+                                                        n_pad),
+                                    check_invariants=False)
+        name = f"K1 spmm_csr F={F} float32"
+        modes[name] = check_mode(
+            name, lambda: K.spmm_csr(x, w_s, None, idx, None, rp, None, None,
+                                     None, layout.num_rows),
+            lambda: K.spmm_csr_plain(x, w_s, idx, rp, layout.num_rows),
+            lambda: torch.sparse.mm(a, x), rel_tol=REL_TOL,
+            bound_bytes=4 * (2 * E + layout.num_rows + 1)
+            + 4 * F * (n_pad + layout.num_rows), flops=2 * E * F,
+            peak=FP32_FLOPS_PER_S,
+            scale=K.spmm_csr_plain(x.abs(), w_s.abs(), idx, rp,
+                                   layout.num_rows),
+            flush=flush, gather_bytes=E * F * 4, twice=True,
+            extra={"path": what})
+    del flush
+    return modes
+
+
+def _keyed_draws_ms(pooler, x):
+    """Device ms of one stream of BNPool's per-node Gamma draws
+    (``draw_gamma_keyed``) at the selector's α for ``x``."""
+    from tgp_tpu_torch.select import dp
+
+    out = torch.clamp(torch.nn.functional.softplus(pooler.selector.mlp(x)),
+                      1e-3, 1e3)
+    alpha = out.chunk(2, dim=-1)[0].contiguous()
+    graph = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    pos = torch.arange(x.shape[0], device=x.device)
+    return median_ms(lambda: dp.draw_gamma_keyed(alpha, POOL_SAMPLE_SEED,
+                                                 graph, pos, 0), None)
+
+
+def _leaf_errors(tag, got, ref):
+    """Each gradient leaf within POOL_TOL of its largest |value|."""
+    if set(got) != set(ref):
+        raise AssertionError(f"{tag}: leaves {sorted(got)} vs {sorted(ref)}")
+    worst = 0.0
+    for k, v in ref.items():
+        scale = max(float(v.abs().max()), 1e-30)
+        err = float((got[k] - v).abs().max()) / scale
+        if not (torch.isfinite(got[k]).all() and err <= POOL_TOL):
+            raise AssertionError(f"{tag}: gradient {k} error {err} of its "
+                                 f"scale {scale} > {POOL_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_parallel_pool(card):
+    """``parallel/dense_pool.py`` and ``parallel/sparse_pool.py`` on a world
+    of one rank in this process, over NCCL on the card (no fallback), on
+    the serving graph (``_pool_graph``: N = 65,536, E = 1M, F = 128, f32).
+
+    Dense family: ``get_pooler(alias, in_channels=128, k=POOL_K,
+    batched=False)`` for the seven aliases (BNPool with
+    ``per_node_keys=True``, base seed POOL_SAMPLE_SEED, one negative an
+    edge); each sharded forward held to the same pooler's single-device
+    unbatched forward on the card (``x_pool``/``adj_pool`` within
+    POOL_TOL of their scale, each loss within POOL_TOL relative), a
+    repeat bit-equal, ms a forward (CUDA events, median), K1 and K4 a
+    forward (and BNPool's keyed draws alone, ``draws_ms``); for
+    POOL_GRADS the gradient of the summed losses (seeded ``1/D``, summed
+    over the ranks) held leaf by leaf and repeated bit for bit.  Sparse family: ``TopkPoolModel`` (hidden 128, 3 classes) with
+    top-k and SAG at ratio 0.5 (``kmax`` = 32,768): the logits held to the
+    single-device model on the card, the gradient of CE on label 1 held
+    leaf by leaf, both repeated bit for bit, ms a forward, K1 and K4 a
+    forward.  The two routes compute the scores in other orders, so two
+    nodes a rounding apart may rank the other way: where the kept set or
+    a kept node's rank (its supernode) differs, the single-device run
+    replays the sharded selection (``pinned``)."""
+    import torch.distributed as dist
+
+    from tgp_tpu_torch import from_graphs
+    from tgp_tpu_torch.parallel import _collectives as C
+    from tgp_tpu_torch.parallel import dense_pool as DP
+    from tgp_tpu_torch.parallel import sparse_pool as SP
+    from tgp_tpu_torch.parallel.launch import single_rank_world
+    from tgp_tpu_torch.parallel.train import make_mesh
+    from tgp_tpu_torch.poolers import get_pooler
+
+    t_phase = time.perf_counter()
+    if not dist.is_nccl_available():
+        raise AssertionError("[parallel_pool] needs NCCL; this torch has "
+                             "none")
+
+    def close(name, got, ref):
+        scale = max(float(ref.float().abs().max()), 1e-30)
+        err = float((got.float() - ref.float()).abs().max()) / scale
+        if not (torch.isfinite(got.float()).all() and err <= POOL_TOL):
+            raise AssertionError(f"[parallel_pool] {name}: error {err} of "
+                                 f"the scale {scale} > {POOL_TOL}")
+        return err
+
+    def loss_close(name, got, ref):
+        got, ref = float(got), float(ref)
+        err = abs(got - ref) / (abs(ref) + 1e-6)
+        if not (np.isfinite(got) and abs(got - ref)
+                <= POOL_TOL * abs(ref) + 1e-6):
+            raise AssertionError(f"[parallel_pool] {name}: {got} vs the "
+                                 f"single-device {ref}")
+        return err
+
+    x_np, s_np, r_np, w_np = _pool_graph()
+    t0 = time.perf_counter()
+    prep = DP.prepare_sharded_dense_graph(x_np, s_np, r_np, w_np, N_NODES, 1,
+                                          device="cuda")
+    NS, NR, NM, flat_neg = DP.prepare_sharded_negatives(
+        POOL_NEG_SEED, s_np, r_np, N_NODES, 1, device="cuda")
+    flat = from_graphs([(x_np, np.stack([s_np, r_np]), w_np)],
+                       pad_nodes=prep[5], pad_edges=N_EDGES, device="cuda")
+    torch.cuda.synchronize()
+    row = dict(card=card, prepare_s=time.perf_counter() - t0,
+               negatives=int(NM.sum()))
+    total = dict.fromkeys(read_counts(), 0)
+
+    def counted(fn):
+        """One forward of the main path, its launches added to the
+        phase's."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        for k, v in got.items():
+            total[k] += v
+        return out, got
+
+    with single_rank_world("nccl"):
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"[parallel_pool] backend "
+                                 f"{dist.get_backend()}")
+        mesh = make_mesh(1, axis="n")
+        group = mesh.get_group("n")
+        args = DP.device_put_sharded_dense(mesh, *prep[:5], axis="n")
+        rows_per = prep[6]
+        neg = (NS[0], NR[0], NM[0])
+
+        # ---- the dense family ------------------------------------------
+        dense = {}
+        for i, alias in enumerate(POOL_DENSE):
+            bn = alias == "bnpool"
+            pooler = get_pooler(
+                alias, in_channels=FEATURES, k=POOL_K, batched=False,
+                device="cuda", generator=torch.Generator().manual_seed(i),
+                **({"per_node_keys": True} if bn else {}))
+            step = DP.make_sharded_dense_pool_step(pooler, mesh, rows_per,
+                                                   axis="n")
+            extra = (neg if bn else ())
+
+            def fwd(step=step, bn=bn, extra=extra):
+                if bn:
+                    return step(POOL_SAMPLE_SEED, *args, *extra)
+                return step(*args)
+
+            def ref_fwd(pooler=pooler, bn=bn):
+                if bn:
+                    return pooler(flat, negatives=flat_neg,
+                                  sample_seed=POOL_SAMPLE_SEED)
+                return pooler(flat)
+
+            with torch.no_grad():
+                fwd()  # the partition's layouts, made once
+                (x_pool, adj, losses), launches = counted(fwd)
+                again = fwd()
+                ref = ref_fwd()
+            repeat = (torch.equal(again[0], x_pool)
+                      and torch.equal(again[1], adj)
+                      and all(torch.equal(again[2][k], v)
+                              for k, v in losses.items()))
+            if not repeat:
+                raise AssertionError(f"[parallel_pool] {alias}: a repeated "
+                                     "sharded forward differs")
+            if set(losses) != set(ref.loss):
+                raise AssertionError(f"[parallel_pool] {alias}: losses "
+                                     f"{sorted(losses)} vs {sorted(ref.loss)}")
+            rec = dict(
+                launches={"K1": launches["spmm_csr"],
+                          "K4": launches["sorted_segment_sum"]},
+                x_pool_rel_err=close(f"{alias} x_pool", x_pool,
+                                     ref.dense.x[0]),
+                adj_pool_rel_err=close(f"{alias} adj_pool", adj,
+                                       ref.dense.adj[0]),
+                loss_rel_err={k: loss_close(f"{alias} {k}", v, ref.loss[k])
+                              for k, v in losses.items()},
+                losses={k: float(v) for k, v in losses.items()},
+                repeat_bit_equal=repeat)
+            if launches["spmm_csr"] < 1 or launches["sorted_segment_sum"] < 1:
+                raise AssertionError(f"[parallel_pool] {alias} launched "
+                                     f"{launches}: want K1 and K4")
+            with torch.no_grad():
+                rec["ms"] = median_ms(fwd, None)
+                rec["single_device_ms"] = median_ms(ref_fwd, None)
+                if bn:  # one stream of the keyed draws at the forward's shape
+                    rec["draws_ms"] = _keyed_draws_ms(pooler, args[0])
+            if alias in POOL_GRADS:
+                def sharded_grads(fwd=fwd, pooler=pooler):
+                    pooler.zero_grad(set_to_none=True)
+                    losses = fwd()[2]
+                    C.backward_replicated(sum(losses.values()), group)
+                    C.psum_grads_(pooler.parameters(), [group])
+                    return {k: v.grad.clone() for k, v
+                            in pooler.named_parameters()
+                            if v.grad is not None}
+
+                g1, g2 = sharded_grads(), sharded_grads()
+                pooler.zero_grad(set_to_none=True)
+                sum(ref_fwd().loss.values()).backward()
+                g_ref = {k: v.grad.clone() for k, v
+                         in pooler.named_parameters() if v.grad is not None}
+                rec["grad_rel_err"] = _leaf_errors(f"[parallel_pool] "
+                                                   f"{alias}", g1, g_ref)
+                rec["grad_repeat_bit_equal"] = all(
+                    torch.equal(g1[k], g2[k]) for k in g1)
+                if not rec["grad_repeat_bit_equal"]:
+                    raise AssertionError(f"[parallel_pool] {alias}: a "
+                                         "repeated gradient differs")
+            dense[alias] = rec
+            del pooler, step
+
+        # ---- the sparse family -------------------------------------------
+        sparse = {}
+        y = torch.tensor([1], device="cuda")
+        for i, alias in enumerate(POOL_SPARSE):
+            pooler = get_pooler(alias, in_channels=HIDDEN, ratio=0.5,
+                                device="cuda",
+                                generator=torch.Generator().manual_seed(i))
+            model = SP.TopkPoolModel(
+                pooler, hidden=HIDDEN, num_classes=CLASSES,
+                in_channels=FEATURES, device="cuda",
+                generator=torch.Generator().manual_seed(10 + i))
+            fwd = SP.make_sharded_topk_model_forward(
+                model, mesh, rows_per=rows_per, max_nodes=flat.max_nodes,
+                axis="n")
+            picks = []
+            with torch.no_grad():
+                fwd(*args)
+                with pinned_selection(record=picks, topk=True):
+                    logits, launches = counted(lambda: fwd(*args))
+                    ref = model(flat)[0]
+                again = fwd(*args)
+            if not torch.equal(again, logits):
+                raise AssertionError(f"[parallel_pool] {alias}: a repeated "
+                                     "sharded forward differs")
+            # the kept set, and each kept node's supernode (its rank)
+            kept_equal = torch.equal(picks[0][1], picks[1][1])
+            order_equal = torch.equal(picks[0][0], picks[1][0])
+            pinned = not (kept_equal and order_equal)
+
+            def single(fn, pinned=pinned, pick=picks[0]):
+                if not pinned:
+                    return fn()
+                with pinned_selection(replay=[pick], topk=True):
+                    return fn()
+
+            if pinned:
+                with torch.no_grad():
+                    ref = single(lambda: model(flat)[0])
+
+            def grads(sharded, model=model, fwd=fwd, single=single):
+                model.zero_grad(set_to_none=True)
+                if sharded:
+                    loss = torch.nn.functional.cross_entropy(
+                        fwd(*args)[None], y)
+                    C.backward_replicated(loss, group)
+                    C.psum_grads_(model.parameters(), [group])
+                else:
+                    single(lambda: torch.nn.functional.cross_entropy(
+                        model(flat), y).backward())
+                return {k: v.grad.clone() for k, v
+                        in model.named_parameters() if v.grad is not None}
+
+            g1, g2 = grads(True), grads(True)
+            g_ref = grads(False)
+            rec = dict(
+                launches={"K1": launches["spmm_csr"],
+                          "K4": launches["sorted_segment_sum"]},
+                kmax=SP.topk_budget(0.5, flat.max_nodes),
+                logits_rel_err=close(f"{alias} logits", logits, ref),
+                selection_kept_equal=kept_equal,
+                selection_order_equal=order_equal,
+                pinned=pinned, repeat_bit_equal=True,
+                grad_rel_err=_leaf_errors(f"[parallel_pool] {alias}", g1,
+                                          g_ref),
+                grad_repeat_bit_equal=all(torch.equal(g1[k], g2[k])
+                                          for k in g1))
+            if not rec["grad_repeat_bit_equal"]:
+                raise AssertionError(f"[parallel_pool] {alias}: a repeated "
+                                     "gradient differs")
+            if launches["spmm_csr"] < 1 or launches["sorted_segment_sum"] < 1:
+                raise AssertionError(f"[parallel_pool] {alias} launched "
+                                     f"{launches}: want K1 and K4")
+            with torch.no_grad():
+                rec["ms"] = median_ms(lambda: fwd(*args), None)
+                rec["single_device_ms"] = median_ms(lambda: model(flat),
+                                                    None)
+            sparse[alias] = rec
+            del model, pooler, fwd
+    row.update(dense=dense, sparse=sparse, launches=total,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[parallel_pool] {card} {json.dumps(row)}", flush=True)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3985,6 +4349,8 @@ def main(argv=None) -> int:
     ex_large = phase_example_large_graph(card)
     timed = phase_time_and_mem(card)
     parallel = phase_parallel(card, batch)
+    modes.update(phase_kernels_parallel_pool())
+    parallel_pool = phase_parallel_pool(card)
     # the main paths' launches, each kernel summed over every path that
     # runs it (and K2 in the locality path)
     all_runs = (serving, sparse, serving_sag, train_sag, *small.values(),
@@ -3992,7 +4358,7 @@ def main(argv=None) -> int:
                 serving_mc, train_mc, *mincut.values(), zoo,
                 *serving_aggr.values(), serving_pre, *train_pre.values(),
                 host_pools, cluster_ex, *cluster_train.values(), train_tu,
-                ex_inference, ex_large, timed, parallel)
+                ex_inference, ex_large, timed, parallel, parallel_pool)
 
     def entry(name, source, replaces, launches, mode):
         return dict(name=name, route="cuda", source=source,
@@ -4064,7 +4430,10 @@ def main(argv=None) -> int:
              f"{len(timed['results'])} aliases and sizes timed"),
             ("parallel at one rank", parallel,
              f"a sharded SpMM and its gradient, a pooled forward, "
-             f"{PARALLEL_STEPS} DP and {PARALLEL_STEPS} hybrid steps"))
+             f"{PARALLEL_STEPS} DP and {PARALLEL_STEPS} hybrid steps"),
+            ("sharded pooling at one rank", parallel_pool,
+             f"{len(POOL_DENSE)} dense and {len(POOL_SPARSE)} sparse "
+             "sharded forwards"))
     print("launches: " + "; ".join(
         f"{name} K1 {r['launches']['spmm_csr']}, K2 "
         f"{r['launches']['segment_sum_sorted']}, K3 "

@@ -320,6 +320,16 @@ def test_bnpool_draws_from_its_sample_generator(batches, jax_params):
 
 
 def test_per_node_keys_points_at_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_pooler("bnpool", in_channels=F_IN, k=K, per_node_keys=True,
-                   **CPU)
+    """``per_node_keys`` is ported (``ROADMAP.md`` queued it): the pooler
+    builds, its selector keys each node's draws by (graph, position), and
+    a forward on the same base seed repeats bit for bit (the keyed draws
+    themselves: ``tests/test_torch_dp_keys.py``)."""
+    pool = get_pooler("bnpool_u", in_channels=F_IN, k=K, per_node_keys=True,
+                      **CPU)
+    assert pool.selector.per_node_keys
+    tb = t_from(_graphs(), pad_nodes=32, pad_edges=160, **CPU)
+    with torch.no_grad():
+        a = pool.selector(tb, sample_seed=2).s
+        b = pool.selector(tb, sample_seed=2).s
+        c = pool.selector(tb, sample_seed=3).s
+    assert torch.equal(a, b) and not torch.equal(a, c)

@@ -1985,3 +1985,188 @@ def test_cuda_ring_at_one_rank_is_the_identity():
         C.COMM_LOG.clear()
         assert torch.equal(C.ppermute(xs, mesh.get_group("gp")), xs)
         assert not C.COMM_LOG
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [16, 17])
+@pytest.mark.parametrize("n_pad,hub", [(N_PAD_EDGES, 0), (3000, 700)])
+def test_cuda_k1_at_the_dense_family_widths(F, n_pad, hub):
+    """K1 in f32 at the dense family's widths (``K = 16`` messages of
+    ``SᵀAS``, ``K + 1 = 17`` of HOSC's ``[S | 1]`` chain, rows of 68
+    bytes): forward and the gradient for ``h`` over the transpose layout
+    against the plain version (1e-5 of each row's Σ|w·x|), each run twice
+    and bit-equal."""
+    _skip_without_card()
+    c = _csr_case(F + 40, F, e=900 + hub, n_pad=n_pad, hub=hub)
+    layout = _layout(c, lambda a: torch.tensor(a, device="cuda"))
+    w, s, rp = layout[0], layout[2], layout[4]
+    x = torch.tensor(c["x"], device="cuda")
+    got = _twice_equal(lambda: K.spmm_csr(x, *layout, c["n"]))
+    ref = K.spmm_csr_plain(x, w, s, rp, c["n"])
+    _assert_rel(got.cpu(), ref.cpu(), 1e-5, _row_scale(c, F))
+    g = torch.tensor(np.random.default_rng(F).normal(
+        size=(c["n"], F)).astype(np.float32), device="cuda")
+
+    def grad():
+        xs = x.clone().requires_grad_()
+        (K.spmm_csr(xs, *layout, c["n"]) * g).sum().backward()
+        return xs.grad
+
+    d_x = _twice_equal(grad)
+    w_t, r_t, rp_t = layout[1], layout[5], layout[7]
+    ref_t = K.spmm_csr_plain(g, w_t, r_t, rp_t, c["n"])
+    scale_t = np.zeros((c["n"], F))
+    np.add.at(scale_t, c["s_t"], np.abs(c["w_t"])[:, None]
+              * np.abs(g.cpu().numpy()[c["r_t"]]))
+    _assert_rel(d_x.cpu(), ref_t.cpu(), 1e-5, scale_t)
+
+
+@pytest.mark.cuda
+def test_cuda_keyed_draws_match_the_cpus():
+    """The per-node draws of ``DPSelect(per_node_keys=True)`` on the card:
+    Philox's words bit-equal to the CPU's, the Gamma draws within 1e-6
+    relative (float64 ``log``/``sqrt``/``cos`` of two libraries), and the
+    selector's ``s`` on the card against the CPU's."""
+    from tgp_tpu_torch.select import dp
+
+    _skip_without_card()
+    n, width = 4096, 15
+    rng = np.random.default_rng(0)
+    graph = rng.integers(0, 4, n)
+    col = np.tile(np.arange(width), n)
+    words = {dev: dp.keyed_words(
+        123456789012345, torch.tensor(np.repeat(graph, width), device=dev),
+        torch.tensor(np.repeat(np.arange(n), width), device=dev),
+        torch.tensor(col, device=dev), 1, 2) for dev in ("cuda", "cpu")}
+    for a, b in zip(words["cuda"], words["cpu"]):
+        assert torch.equal(a.cpu(), b)
+    alpha = rng.uniform(1e-3, 8.0, (n, width)).astype(np.float32)
+    draws = {dev: dp.draw_gamma_keyed(
+        torch.tensor(alpha, device=dev), 99,
+        torch.tensor(graph, device=dev), torch.arange(n, device=dev), 0)
+        for dev in ("cuda", "cpu")}
+    got, ref = draws["cuda"].cpu(), draws["cpu"]
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= 1e-6 * ref.abs() + 1e-30).all()
+
+
+def _sharded_pool_runs(run):
+    """``run(device)`` on a 1-rank NCCL world on the card and on a 1-rank
+    gloo world on the CPU (the kernels' plain versions), in turn."""
+    from tgp_tpu_torch.parallel.launch import single_rank_world
+
+    out = {}
+    for dev, backend in (("cuda", "nccl"), ("cpu", "gloo")):
+        with single_rank_world(backend):
+            out[dev] = run(dev)
+    return out
+
+
+def _dense_pool_case(alias, dev, **kw):
+    from tgp_tpu_torch.parallel import dense_pool as DP
+    from tgp_tpu_torch.parallel.train import make_mesh
+    from tgp_tpu_torch.poolers import get_pooler
+
+    rng = np.random.default_rng(3)
+    n, e = 3000, 40_000
+    s, r = rng.integers(0, n, e), rng.integers(0, n, e)
+    w = rng.uniform(0.5, 1.5, e).astype(np.float32)
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    mesh = make_mesh(1, axis="n")
+    pooler = get_pooler(alias, in_channels=32, k=16, batched=False,
+                        device=dev, generator=torch.Generator().manual_seed(1),
+                        **kw)
+    prep = DP.prepare_sharded_dense_graph(x, s, r, w, n, 1, device=dev)
+    args = DP.device_put_sharded_dense(mesh, *prep[:5], axis="n")
+    step = DP.make_sharded_dense_pool_step(pooler, mesh, prep[6], axis="n")
+    if alias == "bnpool":
+        NS, NR, NM, _ = DP.prepare_sharded_negatives(2, s, r, n, 1,
+                                                     device=dev)
+        return pooler, (lambda: step(7, *args, NS[0], NR[0], NM[0]))
+    return pooler, (lambda: step(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias,kw", [("mincut", {}), ("hosc", {}),
+                                      ("bnpool", {"per_node_keys": True})])
+def test_cuda_sharded_dense_pool_matches_its_plain_route(alias, kw):
+    """``parallel.dense_pool`` at K = 16 on a 1-rank NCCL world: K1 (the
+    ``SᵀAS`` messages; HOSC's three ``[S | 1]`` sums at F = 17) and K4
+    (the degrees) launch, the pooled values and losses and the gradient
+    of the summed losses equal the same step on the CPU (within 1e-4 of
+    each output's and leaf's largest |value|), and a repeat is bit-equal."""
+    from tgp_tpu_torch.parallel import _collectives as C
+
+    _skip_without_card()
+
+    def run(dev):
+        pooler, step = _dense_pool_case(alias, dev, **kw)
+        counts = (K.spmm_csr.launches, K.sorted_segment_sum.launches)
+        x_pool, adj, losses = step()
+        if dev == "cuda":
+            assert K.spmm_csr.launches > counts[0]
+            assert K.sorted_segment_sum.launches > counts[1]
+            again = step()
+            assert torch.equal(again[0], x_pool)
+            assert torch.equal(again[1], adj)
+        C.backward_replicated(sum(losses.values()), 1)
+        grads = {k: v.grad.cpu() for k, v in pooler.named_parameters()
+                 if v.grad is not None}
+        return ([x_pool.detach().cpu(), adj.detach().cpu()]
+                + [v.detach().cpu().reshape(1) for v in losses.values()],
+                grads)
+
+    out = _sharded_pool_runs(run)
+    for got, ref in zip(out["cuda"][0], out["cpu"][0]):
+        scale = max(float(ref.abs().max()), 1e-30)
+        assert float((got - ref).abs().max()) <= 1e-4 * scale
+    assert set(out["cuda"][1]) == set(out["cpu"][1])
+    for k, ref in out["cpu"][1].items():
+        scale = max(float(ref.abs().max()), 1e-30)
+        assert float((out["cuda"][1][k] - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alias", ["topk", "sag"])
+def test_cuda_sharded_topk_model_matches_its_plain_route(alias):
+    """``parallel.sparse_pool`` on a 1-rank NCCL world above the kernel
+    regime (E ≥ 2¹⁸): K1 (the GCN layer, SAG's scorer, the coarse conv)
+    and K4 launch, the logits equal the same forward on the CPU (1e-4 of
+    their largest |value|) and a repeat is bit-equal."""
+    from tgp_tpu_torch.parallel import dense_pool as DP
+    from tgp_tpu_torch.parallel import sparse_pool as SP
+    from tgp_tpu_torch.parallel.train import make_mesh
+    from tgp_tpu_torch.poolers import get_pooler
+
+    _skip_without_card()
+    rng = np.random.default_rng(4)
+    n, e = 20_000, 300_000
+    s, r = rng.integers(0, n, e), rng.integers(0, n, e)
+    w = np.ones(e, np.float32)
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+
+    def run(dev):
+        mesh = make_mesh(1, axis="n")
+        pooler = get_pooler(alias, in_channels=32, ratio=0.5, device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        model = SP.TopkPoolModel(pooler, hidden=32, in_channels=16,
+                                 device=dev,
+                                 generator=torch.Generator().manual_seed(2))
+        prep = DP.prepare_sharded_dense_graph(x, s, r, w, n, 1, device=dev)
+        args = DP.device_put_sharded_dense(mesh, *prep[:5], axis="n")
+        fwd = SP.make_sharded_topk_model_forward(model, mesh,
+                                                 rows_per=prep[6],
+                                                 max_nodes=n)
+        with torch.no_grad():
+            counts = (K.spmm_csr.launches, K.sorted_segment_sum.launches)
+            logits = fwd(*args)
+            if dev == "cuda":
+                assert K.spmm_csr.launches - counts[0] == (3 if alias == "sag"
+                                                           else 2)
+                assert K.sorted_segment_sum.launches > counts[1]
+                assert torch.equal(fwd(*args), logits)
+        return logits.cpu()
+
+    out = _sharded_pool_runs(run)
+    scale = max(float(out["cpu"].abs().max()), 1e-30)
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4 * scale

@@ -102,10 +102,9 @@ def test_ops_reexports_jax_names():
 
 
 #: modules of ``tgp_tpu`` whose names the port does not carry: the Pallas
-#: kernels (ported as ``csrc/*.cu`` with ``ops/kernels/*.py``), the native
-#: library's binary, and the two sharded pooling modules still to port
-_NOT_MIRRORED = ("tgp_tpu.ops.pallas", "tgp_tpu._native.libtgp_native",
-                 "tgp_tpu.parallel.dense_pool", "tgp_tpu.parallel.sparse_pool")
+#: kernels (ported as ``csrc/*.cu`` with ``ops/kernels/*.py``) and the
+#: native library's binary
+_NOT_MIRRORED = ("tgp_tpu.ops.pallas", "tgp_tpu._native.libtgp_native")
 
 
 def _jax_modules_with_all():

@@ -178,7 +178,9 @@ assert {'tgp_tpu_torch.ops.kernels.bmm', 'tgp_tpu_torch.models.prepare',
         'tgp_tpu_torch.datasets.multipartite', 'tgp_tpu_torch.datasets.gset',
         'tgp_tpu_torch.datasets.pygsp', 'tgp_tpu_torch.datasets.tudataset',
         'tgp_tpu_torch.datasets.downloads', 'tgp_tpu_torch.utils.checkpoint',
-        'tgp_tpu_torch.utils.cheatsheet', 'tgp_tpu_torch.utils.typing'
+        'tgp_tpu_torch.utils.cheatsheet', 'tgp_tpu_torch.utils.typing',
+        'tgp_tpu_torch.parallel.dense_pool',
+        'tgp_tpu_torch.parallel.sparse_pool'
         } <= set(mods), mods
 import examples.classification_torch
 import examples.classification_pan_torch

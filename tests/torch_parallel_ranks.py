@@ -314,3 +314,197 @@ def sleeping_rank(rank, world):
     import time
 
     time.sleep(60)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel_dense_pool.py
+# ---------------------------------------------------------------------------
+
+
+def _dense_pooler(alias, kw, state):
+    from tgp_tpu_torch.poolers import get_pooler
+
+    pooler = get_pooler(alias, batched=False, device=CPU, **kw)
+    pooler.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    return pooler
+
+
+def _dense_inputs(mesh, graph, world):
+    from tgp_tpu_torch.graph import from_graphs
+    from tgp_tpu_torch.parallel.dense_pool import (
+        device_put_sharded_dense, prepare_sharded_dense_graph)
+
+    x, s, r, w, n = graph
+    x_pad, mask, S, R, W, n_pad, rows_per = prepare_sharded_dense_graph(
+        x, s, r, w, n, world, device=CPU)
+    args = device_put_sharded_dense(mesh, x_pad, mask, S, R, W, axis="n")
+    flat = from_graphs([(x, np.stack([s, r]), w)], pad_nodes=n_pad,
+                       pad_edges=len(s), device=CPU)
+    return args, flat, rows_per
+
+
+def _pool_out(x_pool, adj_pool, losses):
+    return dict(x_pool=_np(x_pool), adj_pool=_np(adj_pool),
+                losses={k: float(v) for k, v in losses.items()})
+
+
+def _same_bits(a, b):
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+
+
+def dense_pool_cases(rank, world, cases):
+    from tgp_tpu_torch.parallel import _collectives as C
+    from tgp_tpu_torch.parallel.dense_pool import (
+        make_sharded_dense_pool_step, prepare_sharded_negatives)
+    from tgp_tpu_torch.parallel.train import make_mesh
+    from tgp_tpu_torch.select import dp
+
+    mesh = make_mesh(world, axis="n")
+    group = mesh.get_group("n")
+    out = {}
+
+    # every alias of the family against its single-device forward
+    for key, (alias, kw, state, graph) in cases["forward"].items():
+        pooler = _dense_pooler(alias, kw, state)
+        args, flat, rows_per = _dense_inputs(mesh, graph, world)
+        step = make_sharded_dense_pool_step(pooler, mesh, rows_per, axis="n")
+        with torch.no_grad():
+            got = step(*args)
+            ref = pooler(flat)
+        out[key] = dict(_pool_out(*got), repeat_equal=_same_bits(
+            got, step(*args)), ref=_pool_out(ref.dense.x[0],
+                                              ref.dense.adj[0], ref.loss))
+
+    # gradients of cut + ortho: seeded 1/D, summed over the ranks
+    alias, kw, state, graph = cases["grads"]
+    args, flat, rows_per = _dense_inputs(mesh, graph, world)
+
+    def sharded_grads():
+        pooler = _dense_pooler(alias, kw, state)
+        step = make_sharded_dense_pool_step(pooler, mesh, rows_per, axis="n")
+        _, _, losses = step(*args)
+        C.backward_replicated(losses["cut_loss"] + losses["ortho_loss"],
+                              group)
+        C.psum_grads_(pooler.parameters(), [group])
+        return {k: _np(v.grad) for k, v in pooler.named_parameters()}
+
+    first, second = sharded_grads(), sharded_grads()
+    ref_pooler = _dense_pooler(alias, kw, state)
+    loss = ref_pooler(flat).loss
+    (loss["cut_loss"] + loss["ortho_loss"]).backward()
+    out["grads"] = dict(grads=first, repeat_equal=all(
+        np.array_equal(first[k], second[k]) for k in first),
+        ref_grads={k: _np(v.grad) for k, v in ref_pooler.named_parameters()})
+
+    # BNPool on JAX's per-node draws (a table by global node index) and
+    # negatives
+    alias, kw, state, graph, neg_seed, (t1, t2) = cases["bnpool"]
+    tables = (torch.tensor(t1), torch.tensor(t2))
+    real = dp.draw_gamma_keyed
+    dp.draw_gamma_keyed = (lambda alpha, seed, graph_ids, pos, stream:
+                           tables[stream][pos.long()])
+    try:
+        pooler = _dense_pooler(alias, kw, state)
+        args, flat, rows_per = _dense_inputs(mesh, graph, world)
+        x, s, r, w, n = graph
+        NS, NR, NM, flat_neg = prepare_sharded_negatives(
+            neg_seed, s, r, n, world, device=CPU)
+        step = make_sharded_dense_pool_step(pooler, mesh, rows_per, axis="n")
+        neg = (NS[rank], NR[rank], NM[rank])
+        with torch.no_grad():
+            got = step(0, *args, *neg)
+            ref = pooler(flat, negatives=flat_neg, sample_seed=0)
+            again = step(0, *args, *neg)
+    finally:
+        dp.draw_gamma_keyed = real
+    out["bnpool"] = dict(_pool_out(*got), repeat_equal=_same_bits(got, again),
+                         ref=_pool_out(ref.dense.x[0], ref.dense.adj[0],
+                                       ref.loss))
+    # the port's own keyed draws: sharded equals single-device
+    with torch.no_grad():
+        got = step(3, *args, *neg)
+        ref = pooler(flat, negatives=flat_neg, sample_seed=3)
+    out["bnpool_own"] = dict(_pool_out(*got), ref=_pool_out(
+        ref.dense.x[0], ref.dense.adj[0], ref.loss))
+
+    # dropout: a seed a call, folded with the rank
+    alias, kw, state, graph = cases["dropout"]
+    pooler = _dense_pooler(alias, kw, state)
+    args, _, rows_per = _dense_inputs(mesh, graph, world)
+    step = make_sharded_dense_pool_step(pooler, mesh, rows_per, axis="n",
+                                        deterministic=False)
+    with torch.no_grad():
+        out["dropout"] = [_np(step(seed, *args)[0]) for seed in (0, 0, 7)]
+        det = make_sharded_dense_pool_step(pooler, mesh, rows_per, axis="n")
+        out["dropout_off"] = _np(det(*args)[0])
+    out["selector_training_restored"] = pooler.selector.mlp.training
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel_sparse_pool.py
+# ---------------------------------------------------------------------------
+
+
+def _topk_model(alias, pool_kw, state, feat):
+    from tgp_tpu_torch.parallel.sparse_pool import TopkPoolModel
+    from tgp_tpu_torch.poolers import get_pooler
+
+    pooler = get_pooler(alias, in_channels=16, device=CPU, **pool_kw)
+    model = TopkPoolModel(pooler, hidden=16, num_classes=3,
+                          in_channels=feat, device=CPU)
+    model.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    return model
+
+
+def sparse_pool_cases(rank, world, cases):
+    from tgp_tpu_torch.parallel import _collectives as C
+    from tgp_tpu_torch.parallel.sparse_pool import (
+        make_sharded_topk_model_forward)
+    from tgp_tpu_torch.parallel.train import make_mesh
+
+    mesh = make_mesh(world, axis="n")
+    group = mesh.get_group("n")
+    out = {}
+
+    def forward_of(model, graph):
+        args, flat, rows_per = _dense_inputs(mesh, graph, world)
+        fwd = make_sharded_topk_model_forward(
+            model, mesh, rows_per=rows_per, max_nodes=flat.max_nodes,
+            axis="n")
+        return (lambda: fwd(*args)), flat
+
+    for key, (alias, pool_kw, state, graph) in cases["forward"].items():
+        model = _topk_model(alias, pool_kw, state, graph[0].shape[1])
+        run, flat = forward_of(model, graph)
+        with torch.no_grad():
+            C.COMM_LOG.clear()
+            logits = run()
+            log = [(op, shape) for op, shape, _, _ in C.COMM_LOG]
+            again = run()
+            ref = model(flat)[0]
+        out[key] = dict(logits=_np(logits), ref=_np(ref), comm=log,
+                        repeat_equal=bool(torch.equal(logits, again)))
+
+    # gradients of CE on label 1: seeded 1/D, summed over the ranks
+    alias, pool_kw, state, graph = cases["grads"]
+    y = torch.tensor([1])
+
+    def grads(sharded):
+        model = _topk_model(alias, pool_kw, state, graph[0].shape[1])
+        run, flat = forward_of(model, graph)
+        if sharded:
+            loss = F.cross_entropy(run()[None], y)
+            C.backward_replicated(loss, group)
+            C.psum_grads_(model.parameters(), [group])
+        else:
+            F.cross_entropy(model(flat), y).backward()
+        return {k: _np(v.grad) for k, v in model.named_parameters()
+                if v.grad is not None}
+
+    first, second = grads(True), grads(True)
+    out["grads"] = dict(grads=first, ref_grads=grads(False),
+                        repeat_equal=all(np.array_equal(first[k], second[k])
+                                         for k in first))
+    return out

@@ -4,8 +4,10 @@ soft-cluster pooler or BNPool, or one without parameters), ``DenseTopkClassifier
 ``PANNet`` of ``examples/classification_pan.py``, an ``AggrReduce``, the
 ``Net`` of ``examples/classification_aggr_reduce.py``, the
 ``PrecoarsenedNet`` of ``examples/pre_coarsening.py``, a
-``ClusteringModel`` (GCN or GTV layers) and a ``PoolLiftNodeClassifier``
-over to the port's modules, so both packages compute the same function;
+``ClusteringModel`` (GCN or GTV layers), a ``PoolLiftNodeClassifier`` and
+the ``TopkPoolModel`` of ``parallel/sparse_pool.py`` (top-k or SAG; a bare
+pooler's tree goes under ``"pooler"``) over to the port's modules, so both
+packages compute the same function;
 and the plain parameter dict of ``tgp_tpu.parallel.pooled_model``
 (:func:`pooled_params_from_numpy`).
 A flax gradient tree has the same paths and maps the same way, so
@@ -76,6 +78,9 @@ _RULES = (
     (r"pooler/selector/lin/kernel", r"pooler.selector.lin.weight", True),
     (r"pooler/selector/lin/bias", r"pooler.selector.lin.bias", False),
     (r"p", r"p", False),  # DenseTopkClassifier's selector projection
+    # parallel/sparse_pool.py's TopkPoolModel
+    (r"(lin1|lin2|head)/kernel", r"\1.weight", True),
+    (r"(lin1|lin2|head)/bias", r"\1.bias", False),
     (r"Dense_([01])/kernel", r"dense_\1.weight", True),
     (r"Dense_([01])/bias", r"dense_\1.bias", False),
     # a conv's flax Dense_0 is the port's lin, its Dense_k lin_k (GCNConv,
@@ -162,7 +167,8 @@ def _flatten(tree: Mapping, prefix: str = ""):
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a flax ``PoolingClassifier``, ``DenseTopkClassifier``,
     ``PANNet``, ``AggrReduce``, aggregation ``Net``, ``PrecoarsenedNet``,
-    ``ClusteringModel`` or ``PoolLiftNodeClassifier`` parameter (or
+    ``ClusteringModel``, ``PoolLiftNodeClassifier`` or ``TopkPoolModel``
+    parameter (or
     gradient) tree (``{"params": ...}`` or its inner dict; leaves as numpy
     or JAX arrays) onto a ``state_dict`` of the port's module of the same
     name.  Dense kernels (``[in, out]``) are transposed for ``nn.Linear``,

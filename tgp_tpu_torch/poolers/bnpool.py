@@ -55,8 +55,10 @@ class BNPool(DenseSRCPooling):
     ``train_K``.  ``generator`` draws the selector's weights,
     ``dropout_generator`` its dropout, ``sample_generator`` the Beta
     draws and the negatives.  ``num_neg_samples`` caps the negatives per
-    graph (unbatched).  ``per_node_keys`` is not ported (DPSelect
-    raises)."""
+    graph (unbatched).  ``per_node_keys`` keys each node's draws by its
+    identity (:class:`~tgp_tpu_torch.select.dp.DPSelect`), so the sharded
+    forward (``parallel/dense_pool.py``) draws what this one does;
+    ``forward``'s ``sample_seed`` then sets the base seed of the draws."""
 
     IS_TRAINABLE = True
     HAS_LOSS = True
@@ -161,13 +163,13 @@ class BNPool(DenseSRCPooling):
 
     def forward(self, batch, *, so: Optional[SelectOutput] = None,
                 lifting: bool = False, x: Optional[Tensor] = None,
-                negatives=None):
+                negatives=None, sample_seed: Optional[int] = None):
         if lifting:
             return self.lift(x if x is not None else batch.x, so)
         if self.batched:
             dense = self.ensure_dense(batch, self.adj_transpose)
             if so is None:
-                so = self.selector(dense)
+                so = self.selector(dense, sample_seed=sample_seed)
             x_pool = reduce_dense_batched(dense.x, so.s)
             adj_pool = dense_connect(dense.adj, so.s)
             loss = self.compute_loss(dense, so)
@@ -176,7 +178,7 @@ class BNPool(DenseSRCPooling):
                 raise TypeError("an unbatched BNPool expects a flat "
                                 "GraphBatch")
             if so is None:
-                so = self.selector(batch)
+                so = self.selector(batch, sample_seed=sample_seed)
             loss = self.compute_sparse_loss(batch, so, negatives)
             place = dict(node_pos=batch.node_pos, max_nodes=batch.max_nodes)
             x_pool = reduce_dense_unbatched(
