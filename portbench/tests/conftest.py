@@ -1,0 +1,9 @@
+"""The benchmark's tests import it from the repository root."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT, ROOT / "portbench"):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
