@@ -21,6 +21,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from tgp_tpu_torch import tracing
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.ops.segment import node_cells, segment_sum
 
@@ -182,12 +183,38 @@ def from_graphs(
     """Collate a list of ``(x, edge_index[, edge_weight])`` numpy graphs
     into a :class:`GraphBatch` on ``device`` (same packing, padding and CSR
     metadata as ``tgp_tpu.graph.from_graphs``).  Edge ids must lie in
-    ``[0, n)`` of their graph: the CUDA kernels gather by them unchecked."""
-    device = resolve_device(device)
-    B = len(graphs)
-    if B == 0:
-        raise ValueError("from_graphs needs at least one graph")
+    ``[0, n)`` of their graph: the CUDA kernels gather by them unchecked.
 
+    Traced as ``tgp.collate`` around ``tgp.collate.pack``,
+    ``tgp.collate.csr`` (with ``sort_edges``) and ``tgp.collate.h2d``
+    (``bytes`` copied, ``pad_bytes`` of them padding)."""
+    device = resolve_device(device)
+    if len(graphs) == 0:
+        raise ValueError("from_graphs needs at least one graph")
+    with tracing.span("tgp.collate"):
+        with tracing.span("tgp.collate.pack"):
+            host, n_tot, e_tot, max_nodes = _pack(
+                graphs, pad_nodes, pad_edges, max_nodes, node_multiple,
+                edge_multiple, dtype)
+        N, E = host["x"].shape[0], host["senders"].shape[0]
+        if sort_edges:
+            with tracing.span("tgp.collate.csr"):
+                _csr_layout(host, dtype)
+        with tracing.span("tgp.collate.h2d") as h2d:
+            moved = {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for k, a in host.items()}
+            if h2d:
+                h2d.set(**_copied_bytes(host, n_tot, N, e_tot, E))
+    return GraphBatch(num_graphs=len(graphs), max_nodes=max_nodes,
+                      edges_sorted=sort_edges, **moved)
+
+
+def _pack(graphs, pad_nodes, pad_edges, max_nodes, node_multiple,
+          edge_multiple, dtype):
+    """The graphs checked and copied into padded numpy arrays, with the
+    self-loop marks; also the real node and edge counts and
+    ``max_nodes``."""
+    B = len(graphs)
     xs, eis, ews = [], [], []
     for g in graphs:
         if len(g) == 3:
@@ -250,51 +277,75 @@ def from_graphs(
 
     has_self_loop = np.zeros(N, dtype=bool)
     has_self_loop[senders[edge_mask & (senders == receivers)]] = True
+    host = dict(x=x_out, senders=senders, receivers=receivers,
+                edge_weight=edge_weight, node_graph=node_graph,
+                node_pos=node_pos, node_mask=node_mask, edge_mask=edge_mask,
+                has_self_loop=has_self_loop)
+    return host, n_tot, e_tot, max_nodes
 
-    csr_aux = {}
-    if sort_edges:
-        order = np.argsort(receivers, kind="stable")
-        senders, receivers = senders[order], receivers[order]
-        edge_weight, edge_mask = edge_weight[order], edge_mask[order]
-        rows_pad = ceil_to(max(N, 1), 256)
-        counts = np.bincount(receivers, minlength=rows_pad)
-        row_ptr = np.zeros(rows_pad + 1, np.int32)
-        row_ptr[1:] = np.cumsum(counts).astype(np.int32)
-        perm = np.argsort(senders, kind="stable")
-        senders_t = senders[perm]
-        counts_t = np.bincount(senders_t, minlength=rows_pad)
-        row_ptr_t = np.zeros(rows_pad + 1, np.int32)
-        row_ptr_t[1:] = np.cumsum(counts_t).astype(np.int32)
-        in_degree = np.bincount(
-            receivers, weights=np.abs(edge_weight), minlength=N
-        )[:N].astype(dtype)
-        csr_aux = dict(
-            row_ptr=row_ptr,
-            senders_t=senders_t,
-            receivers_t=receivers[perm],
-            edge_weight_t=edge_weight[perm],
-            row_ptr_t=row_ptr_t,
-            in_degree=in_degree,
-        )
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return GraphBatch(
-        x=dev(x_out),
-        senders=dev(senders),
-        receivers=dev(receivers),
-        edge_weight=dev(edge_weight),
-        node_graph=dev(node_graph),
-        node_pos=dev(node_pos),
-        node_mask=dev(node_mask),
-        edge_mask=dev(edge_mask),
-        num_graphs=B,
-        max_nodes=max_nodes,
-        edges_sorted=sort_edges,
-        has_self_loop=dev(has_self_loop),
-        **{k: dev(v) for k, v in csr_aux.items()},
+def _csr_layout(host: dict, dtype) -> None:
+    """Sort ``host``'s edges by receiver in place and add the CSR metadata:
+    ``row_ptr``, the sender-sorted transpose layout and ``in_degree``."""
+    N = host["x"].shape[0]
+    order = np.argsort(host["receivers"], kind="stable")
+    for k in ("senders", "receivers", "edge_weight", "edge_mask"):
+        host[k] = host[k][order]
+    senders, receivers = host["senders"], host["receivers"]
+    edge_weight = host["edge_weight"]
+    rows_pad = ceil_to(max(N, 1), 256)
+    counts = np.bincount(receivers, minlength=rows_pad)
+    row_ptr = np.zeros(rows_pad + 1, np.int32)
+    row_ptr[1:] = np.cumsum(counts).astype(np.int32)
+    perm = np.argsort(senders, kind="stable")
+    senders_t = senders[perm]
+    counts_t = np.bincount(senders_t, minlength=rows_pad)
+    row_ptr_t = np.zeros(rows_pad + 1, np.int32)
+    row_ptr_t[1:] = np.cumsum(counts_t).astype(np.int32)
+    in_degree = np.bincount(
+        receivers, weights=np.abs(edge_weight), minlength=N
+    )[:N].astype(dtype)
+    host.update(
+        row_ptr=row_ptr,
+        senders_t=senders_t,
+        receivers_t=receivers[perm],
+        edge_weight_t=edge_weight[perm],
+        row_ptr_t=row_ptr_t,
+        in_degree=in_degree,
     )
+
+
+#: the collated arrays by what their first axis indexes: node slots, edge
+#: slots, or CSR rows (no padding)
+_NODE_ARRAYS = ("x", "node_graph", "node_pos", "node_mask", "has_self_loop",
+                "in_degree")
+_EDGE_ARRAYS = ("senders", "receivers", "edge_weight", "edge_mask",
+                "senders_t", "receivers_t", "edge_weight_t")
+_ROW_ARRAYS = ("row_ptr", "row_ptr_t")
+
+
+def _copied_bytes(host: dict, n_real: int, n_pad: int, e_real: int,
+                  e_pad: int) -> dict:
+    """Bytes copied to the device, and the part of them that pads: each
+    node-indexed array's share of padded node slots, each edge-indexed
+    array's share of padded edge slots.  An array of none of the three
+    kinds raises, so a new one is classified before it is counted."""
+    pad = 0
+    for k, a in host.items():
+        if k in _NODE_ARRAYS:
+            real, slots = n_real, n_pad
+        elif k in _EDGE_ARRAYS:
+            real, slots = e_real, e_pad
+        elif k in _ROW_ARRAYS:
+            continue
+        else:
+            raise KeyError(f"collated array {k!r} is not classified as "
+                           "node-, edge- or row-indexed")
+        if a.shape[0] != slots:
+            raise ValueError(f"collated array {k!r} has {a.shape[0]} rows, "
+                             f"not {slots} slots")
+        pad += a.nbytes // slots * (slots - real) if slots else 0
+    return dict(bytes=sum(a.nbytes for a in host.values()), pad_bytes=pad)
 
 
 # ---------------------------------------------------------------------------

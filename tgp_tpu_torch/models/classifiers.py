@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tgp_tpu_torch import tracing
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import DenseGraphBatch
 from tgp_tpu_torch.mp.gcn import GCNConv
@@ -87,20 +88,29 @@ class PoolingClassifier(nn.Module):
         self.to(device)
 
     def forward(self, batch) -> Tuple[torch.Tensor, PoolingOutput]:
-        x = batch.x
-        if (isinstance(batch, DenseGraphBatch)
-                and self.compute_dtype is not None):
-            x = x.to(self.compute_dtype)
-        for conv in self.pre_convs:
-            x = conv_step(conv, batch, x, self.remat)
-        out: PoolingOutput = self.pooler(batch.with_features(x))
-        pooled = out.graph if out.graph is not None else out.dense
-        h = pooled.x
-        for conv in self.post_convs:
-            h = conv_step(conv, pooled, h, self.remat)
-        where = (dict(mask=pooled.mask) if out.graph is None else dict(
-            node_graph=pooled.node_graph, num_graphs=pooled.num_graphs,
-            node_mask=pooled.node_mask))
-        z = global_reduce(h.to(torch.float32), op=self.readout, **where)
-        z = F.relu(self.dense_0(z))
-        return self.dense_1(z), out
+        """Traced as ``tgp.model.forward`` (with ``launches``) around
+        ``tgp.model.conv`` (each), ``tgp.model.pool`` and
+        ``tgp.model.readout`` (the readout and the head)."""
+        with tracing.span("tgp.model.forward", count_launches=True):
+            x = batch.x
+            if (isinstance(batch, DenseGraphBatch)
+                    and self.compute_dtype is not None):
+                x = x.to(self.compute_dtype)
+            for conv in self.pre_convs:
+                with tracing.span("tgp.model.conv"):
+                    x = conv_step(conv, batch, x, self.remat)
+            with tracing.span("tgp.model.pool"):
+                out: PoolingOutput = self.pooler(batch.with_features(x))
+            pooled = out.graph if out.graph is not None else out.dense
+            h = pooled.x
+            for conv in self.post_convs:
+                with tracing.span("tgp.model.conv"):
+                    h = conv_step(conv, pooled, h, self.remat)
+            where = (dict(mask=pooled.mask) if out.graph is None else dict(
+                node_graph=pooled.node_graph, num_graphs=pooled.num_graphs,
+                node_mask=pooled.node_mask))
+            with tracing.span("tgp.model.readout"):
+                z = global_reduce(h.to(torch.float32), op=self.readout,
+                                  **where)
+                logits = self.dense_1(F.relu(self.dense_0(z)))
+        return logits, out

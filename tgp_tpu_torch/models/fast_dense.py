@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tgp_tpu_torch import tracing
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import DenseGraphBatch
 from tgp_tpu_torch.models.classifiers import conv_step
@@ -86,22 +87,31 @@ class DenseTopkClassifier(nn.Module):
 
     def forward(self, dense: DenseGraphBatch
                 ) -> Tuple[torch.Tensor, DenseGraphBatch]:
-        x = dense.x
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-        for conv in self.pre_convs:
-            x = conv_step(conv, dense, x, self.remat)
-        dense = DenseGraphBatch(x=x, adj=dense.adj, mask=dense.mask)
-        p = self.p
-        score = torch.tanh((x.to(p.dtype) @ p)
-                           / torch.clamp(torch.linalg.vector_norm(p),
-                                         min=1e-12))
-        pooled = dense_topk_pool(dense, score, self.ratio,
-                                 impl=self.pool_impl)
-        h = pooled.x
-        for conv in self.post_convs:
-            h = conv_step(conv, pooled, h, self.remat)
-        z = global_reduce(h.to(torch.float32), mask=pooled.mask,
-                          op=self.readout)
-        z = F.relu(self.dense_0(z))
-        return self.dense_1(z), pooled
+        """Traced as ``tgp.model.forward`` (with ``launches``) around
+        ``tgp.model.conv`` (each), ``tgp.model.pool`` (the scores and
+        the pooling) and ``tgp.model.readout`` (the readout and the
+        head)."""
+        with tracing.span("tgp.model.forward", count_launches=True):
+            x = dense.x
+            if self.compute_dtype is not None:
+                x = x.to(self.compute_dtype)
+            for conv in self.pre_convs:
+                with tracing.span("tgp.model.conv"):
+                    x = conv_step(conv, dense, x, self.remat)
+            dense = DenseGraphBatch(x=x, adj=dense.adj, mask=dense.mask)
+            with tracing.span("tgp.model.pool"):
+                p = self.p
+                score = torch.tanh((x.to(p.dtype) @ p)
+                                   / torch.clamp(torch.linalg.vector_norm(p),
+                                                 min=1e-12))
+                pooled = dense_topk_pool(dense, score, self.ratio,
+                                         impl=self.pool_impl)
+            h = pooled.x
+            for conv in self.post_convs:
+                with tracing.span("tgp.model.conv"):
+                    h = conv_step(conv, pooled, h, self.remat)
+            with tracing.span("tgp.model.readout"):
+                z = global_reduce(h.to(torch.float32), mask=pooled.mask,
+                                  op=self.readout)
+                logits = self.dense_1(F.relu(self.dense_0(z)))
+        return logits, pooled

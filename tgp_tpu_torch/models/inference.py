@@ -15,6 +15,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from tgp_tpu_torch import tracing
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import GraphBatch, from_graphs
 
@@ -77,23 +78,30 @@ class Predictor:
         return pad_nodes, pad_edges, max_nodes
 
     def __call__(self, graphs: Sequence) -> np.ndarray:
+        """Traced as ``tgp.predict`` (``graphs``, ``chunks``) around each
+        chunk's ``tgp.collate``, the model's spans and ``tgp.predict.d2h``,
+        the wait for the card and the copy back."""
         B = self.batch_size
         if len(graphs) == 0:
             return np.empty((0,) + self._out_tail, dtype=np.float32)
         outs = []
-        for start in range(0, len(graphs), B):
-            chunk = list(graphs[start: start + B])
-            n_valid = len(chunk)
-            while len(chunk) < B:  # keep B fixed; surplus sliced off below
-                chunk.append(chunk[-1])
-            pn, pe, mx = self._budget(chunk)
-            self._seen_buckets.add((pn, pe, mx))
-            batch = from_graphs(chunk, pad_nodes=pn, pad_edges=pe,
-                                max_nodes=mx, sort_edges=self.sort_edges,
-                                device=self.device)
-            with torch.inference_mode():
-                out = self._apply(batch)
-            out = out.to(torch.float32).cpu().numpy()
-            self._out_tail = tuple(out.shape[1:])
-            outs.append(out[:n_valid])
+        with tracing.span("tgp.predict") as sp:
+            if sp:
+                sp.set(graphs=len(graphs), chunks=-(-len(graphs) // B))
+            for start in range(0, len(graphs), B):
+                chunk = list(graphs[start: start + B])
+                n_valid = len(chunk)
+                while len(chunk) < B:  # keep B fixed; surplus sliced off
+                    chunk.append(chunk[-1])
+                pn, pe, mx = self._budget(chunk)
+                self._seen_buckets.add((pn, pe, mx))
+                batch = from_graphs(chunk, pad_nodes=pn, pad_edges=pe,
+                                    max_nodes=mx, sort_edges=self.sort_edges,
+                                    device=self.device)
+                with torch.inference_mode():
+                    out = self._apply(batch)
+                with tracing.span("tgp.predict.d2h"):
+                    out = out.to(torch.float32).cpu().numpy()
+                self._out_tail = tuple(out.shape[1:])
+                outs.append(out[:n_valid])
         return np.concatenate(outs, axis=0)
