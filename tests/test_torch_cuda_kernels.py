@@ -978,6 +978,51 @@ def test_cuda_gcn_sorted_branch_is_bit_equal_twice():
     assert K.segment_sum_sorted.launches == before + 4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["unit", "float"])
+def test_cuda_csr_build_is_the_cpu_build_with_no_sync(weights):
+    """``from_graphs(sort_edges=True)``'s CSR build on the card at the
+    large serving cell's shapes (65,536 nodes, 1,000,000 edges in
+    1,048,576 slots): every array equal to the CPU build's bit for bit,
+    ``in_degree`` too (each row's f64 sum in edge order on both); a second
+    build on the card bit-equal to the first, made under
+    ``torch.cuda.set_sync_debug_mode("error")`` and behind ~0.2 s of
+    spinning that it returns before, so with no host sync."""
+    from tgp_tpu_torch import graph as G
+
+    _skip_without_card()
+    rng = np.random.default_rng(21)
+    n, e = 65536, 1_000_000
+    g = (rng.normal(size=(n, 128)).astype(np.float32),
+         np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]))
+    if weights == "float":
+        g = g + ((rng.random(e) + 0.1).astype(np.float32),)
+    kw = dict(pad_nodes=n, pad_edges=1 << 20, sort_edges=True)
+    cpu = G.from_graphs([g], device="cpu", **kw)
+    card = G.from_graphs([g], device="cuda", **kw)
+    layout = ("senders", "receivers", "edge_weight", "edge_mask", "row_ptr",
+              "senders_t", "receivers_t", "edge_weight_t", "row_ptr_t",
+              "in_degree")
+    for f in layout:
+        a, b = getattr(card, f).cpu(), getattr(cpu, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    host = G._pack([g], n, 1 << 20, None, 8, 128, np.float32)[0]
+    again = {k: torch.from_numpy(a).cuda() for k, a in host.items()}
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    spun = torch.cuda.Event()
+    spun.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        G._csr_layout(again, e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not spun.query()  # enqueued while the card still spun
+    torch.cuda.synchronize()
+    for f in layout:
+        assert torch.equal(again[f], getattr(card, f)), f
+
+
 def _sag_batch(device, seed=4):
     from tgp_tpu_torch.graph import from_graphs
 

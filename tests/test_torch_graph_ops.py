@@ -83,6 +83,94 @@ def test_from_graphs_matches_jax(sort_edges, pad):
     _eq(tb.has_self_loop, want)
 
 
+def _csr_oracle(host: dict) -> dict:
+    """The receiver-sorted CSR layout of packed numpy arrays by numpy's
+    arithmetic (two stable argsorts, bincounts, an f64 weighted bincount
+    rounded to the weights' dtype): the oracle of the tensor build."""
+    N = host["x"].shape[0]
+    order = np.argsort(host["receivers"], kind="stable")
+    out = {k: host[k][order]
+           for k in ("senders", "receivers", "edge_weight", "edge_mask")}
+    s, r, w = out["senders"], out["receivers"], out["edge_weight"]
+    rows_pad = tg.ceil_to(max(N, 1), 256)
+    perm = np.argsort(s, kind="stable")
+    row_ptr = np.zeros(rows_pad + 1, np.int32)
+    row_ptr[1:] = np.cumsum(np.bincount(r, minlength=rows_pad))
+    row_ptr_t = np.zeros(rows_pad + 1, np.int32)
+    row_ptr_t[1:] = np.cumsum(np.bincount(s[perm], minlength=rows_pad))
+    out.update(row_ptr=row_ptr, senders_t=s[perm], receivers_t=r[perm],
+               edge_weight_t=w[perm], row_ptr_t=row_ptr_t,
+               in_degree=np.bincount(r, weights=np.abs(w), minlength=N)[
+                   :N].astype(w.dtype))
+    return out
+
+
+def _csr_case(name):
+    """``(graphs, from_graphs keywords)`` of one case of the CSR build:
+    edges in no order, self-loops and repeated edges in every graph with
+    edges."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def graph(n, e, weights):
+        s, r = rng.integers(0, n, e), rng.integers(0, n, e)
+        s[:3], r[:3] = 1, 1                     # a self-loop, three times
+        s[3:6], r[3:6] = s[6], r[6]             # an edge four times
+        w = {"float": rng.random(e) + 0.1,
+             "signed": rng.normal(size=e) * (rng.random(e) > 0.2),
+             "integer": rng.integers(-3, 4, e)}[weights]
+        return (rng.normal(size=(n, 3)).astype(np.float32),
+                np.stack([s, r]), w.astype(np.float32))
+
+    no_edges = (np.ones((7, 3), np.float32), np.zeros((2, 0), np.int64))
+    if name == "loops_and_repeats":
+        return [graph(40, 200, "float")], {}
+    if name == "signed_and_zero_weights":
+        return [graph(50, 300, "signed")], {}
+    if name == "integer_weights":
+        return [graph(60, 400, "integer"), graph(9, 30, "integer")], {}
+    if name == "padded":  # 300 node slots in 512 rows, 1,000 edge slots
+        return [graph(70, 250, "float")], dict(pad_nodes=300, pad_edges=1000)
+    if name == "no_edges":
+        return [no_edges], {}
+    if name == "many_graphs":
+        return [graph(int(n), int(4 * n), "signed") for n in (12, 30, 8)] + [
+            no_edges, graph(25, 90, "integer")], {}
+    raise ValueError(name)
+
+
+CSR_CASES = ["loops_and_repeats", "signed_and_zero_weights",
+             "integer_weights", "padded", "no_edges", "many_graphs"]
+
+
+@pytest.mark.parametrize("case", CSR_CASES)
+def test_csr_build_matches_numpy(case):
+    """Every array equal to numpy's, ``in_degree`` too: its rows add in
+    f64 in edge order, as ``bincount`` does."""
+    graphs, kw = _csr_case(case)
+    host = tg._pack(graphs, kw.get("pad_nodes"), kw.get("pad_edges"), None,
+                    8, 128, np.float32)[0]
+    want = _csr_oracle(host)
+    got = tg.from_graphs(graphs, sort_edges=True, device="cpu", **kw)
+    assert got.row_ptr.shape[0] - 1 == tg.ceil_to(got.num_nodes, 256)
+    for f in CSR_FIELDS + ("senders", "receivers", "edge_weight",
+                           "edge_mask"):
+        a, b = getattr(got, f), want[f]
+        assert a.dtype == getattr(torch, str(b.dtype)), f
+        np.testing.assert_array_equal(_np(a), b, err_msg=f)
+    for f in ("x", "node_graph", "node_pos", "node_mask", "has_self_loop"):
+        np.testing.assert_array_equal(_np(getattr(got, f)), host[f])
+
+
+@pytest.mark.parametrize("case", ["many_graphs", "padded"])
+def test_csr_build_repeats_bit_equal(case):
+    graphs, kw = _csr_case(case)
+    first, second = (tg.from_graphs(graphs, sort_edges=True, device="cpu",
+                                    **kw) for _ in range(2))
+    for f in FIELDS + CSR_FIELDS:
+        a, b = getattr(first, f), getattr(second, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
 def test_from_graphs_rejects_bad_input():
     x = np.zeros((3, 2), np.float32)
     with pytest.raises(ValueError, match="edge ids"):

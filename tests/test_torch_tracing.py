@@ -20,7 +20,7 @@ from tgp_tpu_torch.ops.kernels import segment_spmm as K
 
 torch.set_num_threads(1)
 F_IN, HIDDEN = 8, 16
-COLLATE = ["tgp.collate.pack", "tgp.collate.csr", "tgp.collate.h2d"]
+COLLATE = ["tgp.collate.pack", "tgp.collate.h2d", "tgp.collate.csr"]
 MODEL = ["tgp.model.conv", "tgp.model.pool", "tgp.model.conv",
          "tgp.model.readout"]
 
@@ -157,7 +157,7 @@ def test_predict_records_the_span_tree(sort_edges, counting):
     chunks = _children(recs, root)
     assert [r["name"] for r in chunks] == [
         "tgp.collate", "tgp.model.forward", "tgp.predict.d2h"] * 2
-    collate = COLLATE if sort_edges else [COLLATE[0], COLLATE[2]]
+    collate = COLLATE if sort_edges else COLLATE[:2]
     for r in chunks:
         names = [c["name"] for c in _children(recs, r)]
         assert names == {"tgp.collate": collate, "tgp.model.forward": MODEL,
@@ -199,30 +199,39 @@ def test_collate_counts_bytes_and_padding(sort_edges):
     assert batch.x.shape[0] == n + 9 and batch.senders.shape[0] == e + 37
     assert int(batch.node_mask.sum()) == n and int(batch.edge_mask.sum()) == e
     assert ("tgp.collate.csr" in recs) == sort_edges
-    tensors = [v for v in vars(batch).values() if isinstance(v, torch.Tensor)]
+    # only the packed arrays are copied; the CSR layout is built after the
+    # copy, on the batch's device: present with sort_edges, not counted
+    layout = ("row_ptr", "senders_t", "receivers_t", "edge_weight_t",
+              "row_ptr_t", "in_degree")
+    assert all((getattr(batch, k) is not None) == sort_edges for k in layout)
+    copied = [v for k, v in vars(batch).items()
+              if isinstance(v, torch.Tensor) and k not in layout]
+    assert len(copied) == 9
     h2d = recs["tgp.collate.h2d"]["attrs"]
-    assert h2d["bytes"] == sum(t.numel() * t.element_size() for t in tensors)
+    assert h2d["bytes"] == sum(t.numel() * t.element_size() for t in copied)
     # a padded node slot: x (F f32), node_graph, node_pos (i32), node_mask,
-    # has_self_loop (bool), in_degree (f32, sorted only); an edge slot:
-    # senders, receivers (i32), edge_weight (f32), edge_mask, and the
-    # transpose layout's senders, receivers, weights (sorted only)
-    node_slot = 4 * F_IN + 4 + 4 + 1 + 1 + (4 if sort_edges else 0)
-    edge_slot = 4 + 4 + 4 + 1 + (12 if sort_edges else 0)
+    # has_self_loop (bool); an edge slot: senders, receivers (i32),
+    # edge_weight (f32), edge_mask
+    node_slot = 4 * F_IN + 4 + 4 + 1 + 1
+    edge_slot = 4 + 4 + 4 + 1
     assert h2d["pad_bytes"] == 9 * node_slot + 37 * edge_slot
+    if sort_edges:
+        assert recs["tgp.collate.csr"]["attrs"] == dict(on_card=False,
+                                                        edges=e + 37)
 
 
 @pytest.mark.parametrize("key, rows", [("new_array", 4), ("x", 3)])
 def test_collate_refuses_to_count_an_unclassified_array(key, rows):
     host = dict(x=np.zeros((4, 2), np.float32),
                 senders=np.zeros(6, np.int32),
-                row_ptr=np.zeros(257, np.int32))
+                edge_mask=np.zeros(6, bool))
     host[key] = np.zeros((rows, 2), np.float32)
     with pytest.raises((KeyError, ValueError), match=key):
         G._copied_bytes(host, 3, 4, 5, 6)
     del host[key]
     if key == "new_array":
         assert G._copied_bytes(host, 3, 4, 5, 6) == dict(
-            bytes=32 + 24 + 4 * 257, pad_bytes=8 + 4)
+            bytes=32 + 24 + 6, pad_bytes=8 + 4 + 1)
 
 
 @pytest.mark.parametrize("kind", ["sparse", "dense"])

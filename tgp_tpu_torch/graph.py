@@ -8,8 +8,9 @@
   ``in_degree``), which the CUDA SpMM kernel reads.
 * :class:`DenseGraphBatch` — ``[B, Nmax, ...]`` padded tensors.
 
-Collation is host-side numpy, identical to ``tgp_tpu``'s; the result is
-moved to ``device`` once.
+Packing is host-side numpy, identical to ``tgp_tpu``'s, and its arrays
+are copied to ``device`` once; the CSR metadata is built after the copy,
+by tensor ops on ``device``, with the same bits as ``tgp_tpu``'s.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ class GraphBatch:
     ``node_mask [N]``/``edge_mask [E]`` bool, and the static ``num_graphs``,
     ``max_nodes``, ``edges_sorted`` and ``node_mask_shrunk`` flags.
 
-    CSR metadata (``from_graphs(sort_edges=True)``): ``row_ptr
+    CSR metadata (``from_graphs(sort_edges=True)``, built on the batch's
+    device after the packed arrays are copied there): ``row_ptr
     [rows_pad+1]`` int32 receiver offsets (rows_pad = N rounded up to 256;
     zero-weight padding edges sit at the head of row 0 and are counted),
     the transpose layout ``senders_t``/``receivers_t``/``edge_weight_t``/
@@ -159,7 +161,7 @@ class DenseGraphBatch:
 
 
 # ---------------------------------------------------------------------------
-# Host-side collation (numpy)
+# Collation: host-side packing (numpy), the CSR layout on the device
 # ---------------------------------------------------------------------------
 
 
@@ -186,8 +188,10 @@ def from_graphs(
     ``[0, n)`` of their graph: the CUDA kernels gather by them unchecked.
 
     Traced as ``tgp.collate`` around ``tgp.collate.pack``,
-    ``tgp.collate.csr`` (with ``sort_edges``) and ``tgp.collate.h2d``
-    (``bytes`` copied, ``pad_bytes`` of them padding)."""
+    ``tgp.collate.h2d`` (``bytes`` copied, ``pad_bytes`` of them padding)
+    and, with ``sort_edges``, ``tgp.collate.csr`` after the copy
+    (``on_card``: built on a CUDA device; ``edges``: the edge slots
+    sorted)."""
     device = resolve_device(device)
     if len(graphs) == 0:
         raise ValueError("from_graphs needs at least one graph")
@@ -197,14 +201,16 @@ def from_graphs(
                 graphs, pad_nodes, pad_edges, max_nodes, node_multiple,
                 edge_multiple, dtype)
         N, E = host["x"].shape[0], host["senders"].shape[0]
-        if sort_edges:
-            with tracing.span("tgp.collate.csr"):
-                _csr_layout(host, dtype)
         with tracing.span("tgp.collate.h2d") as h2d:
             moved = {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
                      for k, a in host.items()}
             if h2d:
                 h2d.set(**_copied_bytes(host, n_tot, N, e_tot, E))
+        if sort_edges:
+            with tracing.span("tgp.collate.csr") as csr:
+                _csr_layout(moved, e_tot)
+                if csr:
+                    csr.set(on_card=device.type == "cuda", edges=E)
     return GraphBatch(num_graphs=len(graphs), max_nodes=max_nodes,
                       edges_sorted=sort_edges, **moved)
 
@@ -284,63 +290,73 @@ def _pack(graphs, pad_nodes, pad_edges, max_nodes, node_multiple,
     return host, n_tot, e_tot, max_nodes
 
 
-def _csr_layout(host: dict, dtype) -> None:
-    """Sort ``host``'s edges by receiver in place and add the CSR metadata:
-    ``row_ptr``, the sender-sorted transpose layout and ``in_degree``."""
-    N = host["x"].shape[0]
-    order = np.argsort(host["receivers"], kind="stable")
-    for k in ("senders", "receivers", "edge_weight", "edge_mask"):
-        host[k] = host[k][order]
-    senders, receivers = host["senders"], host["receivers"]
-    edge_weight = host["edge_weight"]
-    rows_pad = ceil_to(max(N, 1), 256)
-    counts = np.bincount(receivers, minlength=rows_pad)
-    row_ptr = np.zeros(rows_pad + 1, np.int32)
-    row_ptr[1:] = np.cumsum(counts).astype(np.int32)
-    perm = np.argsort(senders, kind="stable")
-    senders_t = senders[perm]
-    counts_t = np.bincount(senders_t, minlength=rows_pad)
-    row_ptr_t = np.zeros(rows_pad + 1, np.int32)
-    row_ptr_t[1:] = np.cumsum(counts_t).astype(np.int32)
-    in_degree = np.bincount(
-        receivers, weights=np.abs(edge_weight), minlength=N
-    )[:N].astype(dtype)
-    host.update(
+def _csr_layout(t: dict, e_real: int) -> None:
+    """Sort the edges of the copied arrays ``t`` (the first ``e_real``
+    real, the rest padding) by receiver, in place, and add the CSR
+    metadata: ``row_ptr``, the sender-sorted transpose layout and
+    ``in_degree``.  Tensor ops on the arrays' own device that read
+    nothing back to the host, with ``tgp_tpu``'s bits on any device: both
+    sorts are stable, so every integer array has one answer; the offsets
+    are ``searchsorted`` of each row id in the sorted keys; ``in_degree``
+    adds each row's |w| in f64 one after another, in edge order (one thread
+    a row on the card, no atomics), as numpy's ``bincount`` does, and
+    rounds the sum to the weights' dtype."""
+    N, E = t["x"].shape[0], t["receivers"].shape[0]
+    receivers, order = torch.sort(t["receivers"], stable=True)
+    senders, edge_weight, edge_mask = (
+        t[k].index_select(0, order)
+        for k in ("senders", "edge_weight", "edge_mask"))
+    rows = torch.arange(ceil_to(max(N, 1), 256) + 1, dtype=torch.int32,
+                        device=receivers.device)
+    row_ptr = torch.searchsorted(receivers, rows, out_int32=True)
+    senders_t, perm = torch.sort(senders, stable=True)
+    # [E, 1] data: each row added in edge order on the card too (1-D data
+    # takes another order there); unsafe: no check reads the offsets back.
+    # The padding edges, zeros that end row 0 (the stable sort keeps them
+    # after its real edges) and leave its sum's bits alone, are cut into
+    # segments of their own of at most 256, so no thread walks them all.
+    pad_starts = row_ptr[1:2] - (E - e_real) + torch.arange(
+        0, E - e_real, 256, dtype=torch.int32, device=rows.device)
+    sums = torch.segment_reduce(
+        edge_weight.abs().to(torch.float64)[:, None], "sum",
+        offsets=torch.cat([row_ptr[:1], pad_starts, row_ptr[1:N + 1]]),
+        unsafe=True)[:, 0]
+    in_degree = torch.cat([sums[:1], sums[1 + pad_starts.shape[0]:]])[:N]
+    t.update(
+        senders=senders,
+        receivers=receivers,
+        edge_weight=edge_weight,
+        edge_mask=edge_mask,
         row_ptr=row_ptr,
         senders_t=senders_t,
-        receivers_t=receivers[perm],
-        edge_weight_t=edge_weight[perm],
-        row_ptr_t=row_ptr_t,
-        in_degree=in_degree,
+        receivers_t=receivers.index_select(0, perm),
+        edge_weight_t=edge_weight.index_select(0, perm),
+        row_ptr_t=torch.searchsorted(senders_t, rows, out_int32=True),
+        in_degree=in_degree.to(edge_weight.dtype),
     )
 
 
-#: the collated arrays by what their first axis indexes: node slots, edge
-#: slots, or CSR rows (no padding)
-_NODE_ARRAYS = ("x", "node_graph", "node_pos", "node_mask", "has_self_loop",
-                "in_degree")
-_EDGE_ARRAYS = ("senders", "receivers", "edge_weight", "edge_mask",
-                "senders_t", "receivers_t", "edge_weight_t")
-_ROW_ARRAYS = ("row_ptr", "row_ptr_t")
+#: the copied arrays by what their first axis indexes: node slots or edge
+#: slots
+_NODE_ARRAYS = ("x", "node_graph", "node_pos", "node_mask", "has_self_loop")
+_EDGE_ARRAYS = ("senders", "receivers", "edge_weight", "edge_mask")
 
 
 def _copied_bytes(host: dict, n_real: int, n_pad: int, e_real: int,
                   e_pad: int) -> dict:
     """Bytes copied to the device, and the part of them that pads: each
     node-indexed array's share of padded node slots, each edge-indexed
-    array's share of padded edge slots.  An array of none of the three
-    kinds raises, so a new one is classified before it is counted."""
+    array's share of padded edge slots.  An array of neither kind raises,
+    so a new one is classified before it is counted."""
     pad = 0
     for k, a in host.items():
         if k in _NODE_ARRAYS:
             real, slots = n_real, n_pad
         elif k in _EDGE_ARRAYS:
             real, slots = e_real, e_pad
-        elif k in _ROW_ARRAYS:
-            continue
         else:
             raise KeyError(f"collated array {k!r} is not classified as "
-                           "node-, edge- or row-indexed")
+                           "node- or edge-indexed")
         if a.shape[0] != slots:
             raise ValueError(f"collated array {k!r} has {a.shape[0]} rows, "
                              f"not {slots} slots")
