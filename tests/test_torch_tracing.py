@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from tgp_tpu_torch import (DenseTopkClassifier, PoolingClassifier, Predictor,
-                           from_graphs, gcn_norm_dense, get_pooler, to_dense,
-                           tracing)
+from tgp_tpu_torch import (DenseTopkClassifier, HierarchicalClassifier,
+                           PoolingClassifier, Predictor, from_graphs,
+                           gcn_norm_dense, get_pooler, to_dense, tracing)
 from tgp_tpu_torch import graph as G
 from tgp_tpu_torch.ops.kernels import segment_spmm as K
 
@@ -256,6 +256,44 @@ def test_training_forward_is_the_root(kind):
     for root in roots:  # backward and Adam add no span of the program
         assert [c["name"] for c in _children(recs, root)] == MODEL
     assert len(recs) == 2 * (1 + len(MODEL))
+
+
+@pytest.mark.parametrize("mode", ["compact", "masked"])
+def test_hierarchical_forward_records_each_level(mode):
+    g = torch.Generator().manual_seed(0)
+    pools = [get_pooler("sag", in_channels=HIDDEN, ratio=0.5, gnn_kind="gcn",
+                        pool_mode=mode, device="cpu", generator=g)
+             for _ in range(3)]
+    model = HierarchicalClassifier(pools, num_classes=3, hidden=HIDDEN,
+                                   in_channels=F_IN, head=(16, 8),
+                                   device="cpu", generator=g)
+    batch = _batch("sparse")
+    model(batch)
+    assert tracing.spans() == []  # the profiler off: nothing recorded
+    with _profiled():
+        model(batch)
+    recs = tracing.spans()
+    (root,) = [r for r in recs if r["parent"] is None]
+    assert root["name"] == "tgp.model.forward" and "launches" in root["attrs"]
+    top = _children(recs, root)
+    assert [r["name"] for r in top] == [
+        "tgp.model.conv", "tgp.model.pool", "tgp.model.readout"] * 3 + [
+        "tgp.model.head"]
+    # a compact level's pooled graph has B·Kmax slots, Kmax halving at each
+    # level; a masked one keeps the batch's
+    kmax, slots = batch.max_nodes, []
+    for _ in range(3):
+        kmax = -(-kmax // 2)
+        slots.append(batch.num_graphs * kmax if mode == "compact"
+                     else batch.num_nodes)
+    assert [r["attrs"] for r in top[1::3]] == [
+        dict(level=lvl, slots=s) for lvl, s in enumerate(slots)]
+    assert [r["attrs"] for r in top[2::3]] == [dict(level=lvl)
+                                               for lvl in range(3)]
+    for pool in top[1::3]:
+        assert [c["name"] for c in _children(recs, pool)] == [
+            "tgp.model.pool.score", "tgp.model.pool.select"]
+    assert all(r["request"] == root["request"] for r in recs)
 
 
 def test_a_new_profiled_stretch_starts_a_fresh_store():

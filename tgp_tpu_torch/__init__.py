@@ -10,7 +10,8 @@ batch on its device.
 
 from tgp_tpu_torch.graph import (DenseGraphBatch, GraphBatch, from_dense,
                                  from_graphs, to_dense)
-from tgp_tpu_torch.models.classifiers import PoolingClassifier
+from tgp_tpu_torch.models.classifiers import (HierarchicalClassifier,
+                                              PoolingClassifier)
 from tgp_tpu_torch.models.fast_dense import DenseTopkClassifier
 from tgp_tpu_torch.models.inference import Predictor
 from tgp_tpu_torch.models.prepare import prepare_batch
@@ -22,6 +23,7 @@ from tgp_tpu_torch.src import PoolingOutput, SRCPooling
 __version__ = "0.1.0"
 
 __all__ = ["GraphBatch", "DenseGraphBatch", "from_graphs", "to_dense",
-           "from_dense", "PoolingClassifier", "DenseTopkClassifier",
-           "Predictor", "prepare_batch", "gcn_norm_dense", "get_pooler",
-           "pooler_map", "SelectOutput", "PoolingOutput", "SRCPooling"]
+           "from_dense", "PoolingClassifier", "HierarchicalClassifier",
+           "DenseTopkClassifier", "Predictor", "prepare_batch",
+           "gcn_norm_dense", "get_pooler", "pooler_map", "SelectOutput",
+           "PoolingOutput", "SRCPooling"]

@@ -1,11 +1,13 @@
-"""End-to-end graph classifier (port of ``PoolingClassifier`` in
-``tgp_tpu/models/classifiers.py``): GCN → pool → GCN → readout → MLP head,
+"""End-to-end graph classifiers: ``PoolingClassifier`` (port of
+``tgp_tpu/models/classifiers.py``), GCN → pool → GCN → readout → MLP head,
 on a sparse ``GraphBatch`` or a ``DenseGraphBatch`` (route small graphs to
-the dense side with :func:`~tgp_tpu_torch.models.prepare.prepare_batch`)."""
+the dense side with :func:`~tgp_tpu_torch.models.prepare.prepare_batch`);
+and ``HierarchicalClassifier``, SAGPool's hierarchical model: a block of
+GCN → pool → readout for each pooler, the readouts summed, an MLP head."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +22,7 @@ from tgp_tpu_torch.reduce.global_reduce import global_reduce
 from tgp_tpu_torch.src import PoolingOutput
 from tgp_tpu_torch.utils.linear import lecun_normal_linear
 
-__all__ = ["PoolingClassifier", "conv_step"]
+__all__ = ["PoolingClassifier", "HierarchicalClassifier", "conv_step"]
 
 
 def conv_step(conv: nn.Module, batch, x: torch.Tensor,
@@ -114,3 +116,78 @@ class PoolingClassifier(nn.Module):
                                   **where)
                 logits = self.dense_1(F.relu(self.dense_0(z)))
         return logits, out
+
+
+class HierarchicalClassifier(nn.Module):
+    """SAGPool's hierarchical classifier (Lee et al., ICML 2019, §3.2):
+    one block a pooler, each ``relu(GCN)`` → pooler → readout of the
+    pooled graph, then the sum of the blocks' readouts through a head of
+    ReLU layers of widths ``head`` and the output layer.  With three
+    ``get_pooler("sag", gnn_kind="gcn")`` poolers, ``readout="max_mean"``
+    and ``head=(128, 64)`` it is the published SAGPool_h (without its
+    dropout).
+
+    ``readout``: :func:`~tgp_tpu_torch.reduce.global_reduce.global_reduce`
+    ops joined by ``_``, concatenated in that order (``"max_mean"``:
+    ``[max ‖ mean]``).  Casts follow :class:`PoolingClassifier`: the GCN
+    layers compute in ``compute_dtype`` and add their f32 bias, the
+    poolers score in f32, the readouts and the head run in f32.  Sparse
+    batches only; each pooler returns a sparse pooled graph (compact or
+    masked), which the next block takes as its input.
+    """
+
+    def __init__(self, poolers: Sequence[nn.Module], num_classes: int,
+                 hidden: int = 128, in_channels: Optional[int] = None,
+                 readout: str = "max_mean", head: Sequence[int] = (128, 64),
+                 compute_dtype: Optional[torch.dtype] = None, *,
+                 device: DeviceLike = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        in_channels = hidden if in_channels is None else in_channels
+        self.readout_ops = readout.split("_")
+        self.convs = nn.ModuleList(
+            GCNConv(in_channels if i == 0 else hidden, hidden,
+                    dtype=compute_dtype, device=device, generator=generator)
+            for i in range(len(poolers)))
+        self.poolers = nn.ModuleList(poolers)
+        widths = [hidden * len(self.readout_ops), *head, num_classes]
+        self.head = nn.ModuleList(
+            lecun_normal_linear(a, b, generator=generator)
+            for a, b in zip(widths, widths[1:]))
+        self.to(device)
+
+    def forward(self, batch) -> Tuple[torch.Tensor, List[PoolingOutput]]:
+        """Logits and each block's :class:`PoolingOutput`.  Traced as
+        ``tgp.model.forward`` (with ``launches``) around, a block,
+        ``tgp.model.conv``, ``tgp.model.pool`` (``level``; ``slots``: the
+        pooled graph's node slots) and ``tgp.model.readout`` (``level``),
+        then ``tgp.model.head``."""
+        with tracing.span("tgp.model.forward", count_launches=True):
+            x, outs, z = batch.x, [], None
+            for level, (conv, pooler) in enumerate(zip(self.convs,
+                                                       self.poolers)):
+                with tracing.span("tgp.model.conv"):
+                    x = F.relu(conv(batch, x))
+                with tracing.span("tgp.model.pool") as sp:
+                    out: PoolingOutput = pooler(batch.with_features(x))
+                    if sp:
+                        sp.set(level=level, slots=out.graph.num_nodes)
+                outs.append(out)
+                batch = out.graph
+                x = batch.x
+                with tracing.span("tgp.model.readout") as sp:
+                    if sp:
+                        sp.set(level=level)
+                    r = torch.cat([global_reduce(
+                        x.to(torch.float32), op=op,
+                        node_graph=batch.node_graph,
+                        num_graphs=batch.num_graphs,
+                        node_mask=batch.node_mask)
+                        for op in self.readout_ops], dim=1)
+                    z = r if z is None else z + r
+            with tracing.span("tgp.model.head"):
+                for lin in self.head[:-1]:
+                    z = F.relu(lin(z))
+                logits = self.head[-1](z)
+        return logits, outs

@@ -14,6 +14,7 @@ from typing import Callable, Optional, Union
 import torch
 from torch import nn
 
+from tgp_tpu_torch import tracing
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.connect.base import ConnectConfig
 from tgp_tpu_torch.graph import GraphBatch
@@ -42,7 +43,10 @@ class SAGPooling(SRCPooling):
     ``min_score`` a per-graph softmax of it, and the kept nodes are gated
     by it times ``multiplier``.  ``pool_mode`` and the connect flags are
     :class:`~tgp_tpu_torch.poolers.topk.TopkPooling`'s.  ``use_kernel``
-    reaches the GraphConv and GCN scorers (their ``use_kernel``)."""
+    reaches the GraphConv and GCN scorers (their ``use_kernel``).
+
+    Traced as ``tgp.model.pool.score`` (the scorer) and
+    ``tgp.model.pool.select`` (the per-graph ranking) where it selects."""
 
     IS_TRAINABLE = True
 
@@ -113,9 +117,11 @@ class SAGPooling(SRCPooling):
         if lifting:
             return self.lift(x if x is not None else batch.x, so)
         if so is None:
-            so = topk_select_from_scores(self.score(batch, attn), batch,
-                                         self.ratio, self.min_score,
-                                         self.s_inv_op)
+            with tracing.span("tgp.model.pool.score"):
+                score = self.score(batch, attn)
+            with tracing.span("tgp.model.pool.select"):
+                so = topk_select_from_scores(score, batch, self.ratio,
+                                             self.min_score, self.s_inv_op)
         if use_masked_pool(self.pool_mode, batch,
                            degree_norm=self.degree_norm,
                            edge_weight_norm=self.edge_weight_norm,
