@@ -4,7 +4,9 @@ its K1, K2 and K4 ``"wide"`` modes and K1's backward, ``segment_reduce.cu``
 (K5), ``bmm.cu``, ``sddmm.cu``) against their plain PyTorch versions, on
 the card (and the models over them: GTVConv's CSR route against its
 generic one, the clustering and autoencoder models' step one), and runs on the same inputs against each other (every sum order
-but K3's is fixed, so they are equal bit for bit).  Without one the tests
+but K3's is fixed, so they are equal bit for bit); and ``from_graphs``'
+collation on the card (page-locked staging, the padding built there)
+against ``collate_oracle``'s packing, bit for bit.  Without one the tests
 skip; on a GPU machine (which need not have JAX) run them alone:
 
     python3 -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda_kernels.py
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import collate_oracle as oracle
 from tgp_tpu_torch.ops.kernels import bmm as BMM
 from tgp_tpu_torch.ops.kernels import sddmm as SD
 from tgp_tpu_torch.ops.kernels import segment_spmm as K
@@ -1006,7 +1009,7 @@ def test_cuda_csr_build_is_the_cpu_build_with_no_sync(weights):
     for f in layout:
         a, b = getattr(card, f).cpu(), getattr(cpu, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f
-    host = G._pack([g], n, 1 << 20, None, 8, 128, np.float32)[0]
+    host = oracle.pack([g], n, 1 << 20, None, 8, 128, np.float32)[0]
     again = {k: torch.from_numpy(a).cuda() for k, a in host.items()}
     torch.cuda.synchronize()
     torch.cuda._sleep(400_000_000)
@@ -1021,6 +1024,193 @@ def test_cuda_csr_build_is_the_cpu_build_with_no_sync(weights):
     torch.cuda.synchronize()
     for f in layout:
         assert torch.equal(again[f], getattr(card, f)), f
+
+
+def _dd_request(rng, F=128):
+    """Eight graphs of ``portbench``'s ``dd-requests-of-8`` distribution:
+    log-normal node counts (mean 284.3, sigma_log 0.8, clipped to D&D's
+    30..5,748), uniform pairs of distinct nodes at mean degree 5.0342 in
+    both directions, normal features."""
+    sigma = 0.8
+    ns = np.clip(np.rint(rng.lognormal(np.log(284.3) - sigma ** 2 / 2,
+                                       sigma, 8)), 30, 5748).astype(int)
+    out = []
+    for n in ns:
+        m = int(round(n * 5.0342 / 2))
+        a = rng.integers(0, n, m)
+        b = (a + rng.integers(1, n, m)) % n
+        out.append((rng.normal(size=(n, F)).astype(np.float32),
+                    np.stack([np.concatenate([a, b]),
+                              np.concatenate([b, a])])))
+    return out
+
+
+def _large_request(rng, n, e, F=128):
+    """One graph of ``n`` nodes and ``e`` uniform directed edges."""
+    return [(rng.normal(size=(n, F)).astype(np.float32),
+             np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]))]
+
+
+def _same_bucket_larger_first(requests, pred):
+    """``requests`` grouped by ``pred``'s bucket, each group larger first
+    (by real nodes, then edges); asserts that some bucket holds requests
+    of different sizes."""
+    def size(r):
+        return (sum(g[0].shape[0] for g in r), sum(g[1].shape[1] for g in r))
+
+    groups = {}
+    for r in requests:
+        groups.setdefault(pred._budget(r), []).append(r)
+    assert any(len({size(r) for r in g}) > 1 for g in groups.values())
+    return [r for g in groups.values() for r in sorted(g, key=size,
+                                                       reverse=True)]
+
+
+def _serve_twice(requests, apply, monkeypatch, **kw):
+    """The requests served one call each by a ``Predictor``, then by one
+    whose batches come from the oracle's collation: both predictors'
+    outputs and the batches each fed ``apply``."""
+    from tgp_tpu_torch import Predictor
+    from tgp_tpu_torch.models import inference
+
+    runs = []
+    for patched in (False, True):
+        if patched:
+            monkeypatch.setattr(inference, "from_graphs", oracle.from_graphs)
+        seen = []
+        pred = Predictor(lambda b: (seen.append(b), apply(b))[1],
+                         device="cuda", **kw)
+        outs = [pred(r) for r in requests]
+        torch.cuda.synchronize()
+        runs.append((outs, seen))
+    return runs
+
+
+@pytest.mark.cuda
+def test_cuda_served_small_batches_match_oracle(monkeypatch):
+    """Requests of eight D&D-sized graphs through one ``Predictor``, larger
+    first and then smaller within each bucket: every batch equals the
+    oracle's (the padded numpy packing copied whole) bit for bit, and the
+    served bf16 model's logits equal those of a ``Predictor`` fed the
+    oracle's batches, bit for bit."""
+    from tgp_tpu_torch import PoolingClassifier, Predictor, get_pooler
+
+    _skip_without_card()
+    torch.manual_seed(3)
+    model = PoolingClassifier(
+        get_pooler("topk", in_channels=128, ratio=0.5, device="cuda"),
+        num_classes=2, hidden=128, in_channels=128, readout="mean",
+        compute_dtype=torch.bfloat16, device="cuda").eval()
+    rng = np.random.default_rng(24)
+    requests = _same_bucket_larger_first(
+        [_dd_request(rng) for _ in range(40)],
+        Predictor(None, batch_size=8, device="cuda"))
+    (got, seen), (want, fed) = _serve_twice(
+        requests, lambda b: model(b)[0], monkeypatch, batch_size=8)
+    assert len(seen) == len(fed) == len(requests)
+    for a, b in zip(seen, fed):
+        assert oracle.mismatches(a, b) == []
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.float32
+        assert np.array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e", [(65536, 1_000_000), (169_343, 1_166_243)],
+                         ids=["large-graph", "arxiv-size"])
+def test_cuda_served_large_batches_match_oracle(n, e, monkeypatch):
+    """Two different requests at a large serving cell's shape (one graph,
+    ``sort_edges=True``) through one ``Predictor(batch_size=1)``: every
+    array of each batch, the CSR layout included, equals the oracle's."""
+    _skip_without_card()
+    rng = np.random.default_rng(n)
+    requests = [_large_request(rng, n, e) for _ in range(2)]
+    (_, seen), (_, fed) = _serve_twice(
+        requests, lambda b: b.x[:b.num_graphs, :2], monkeypatch,
+        batch_size=1, sort_edges=True)
+    assert len(seen) == len(fed) == 2
+    for a, b in zip(seen, fed):
+        assert a.num_nodes == (262_144 if n > 65536 else n)
+        assert oracle.mismatches(a, b) == []
+
+
+def _bucket_of(graphs):
+    """``from_graphs`` keywords of the serving bucket of ``graphs``."""
+    from tgp_tpu_torch import Predictor
+
+    pn, pe, mx = Predictor(None, device="cuda")._budget(graphs)
+    return dict(pad_nodes=pn, pad_edges=pe, max_nodes=mx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "large"])
+def test_cuda_collation_stage_is_not_reused_before_its_copy(shape):
+    """Request A collated behind ~1 s of spinning on the card, then a
+    smaller request B padded to A's bucket before any sync: B's real rows
+    are written while A's copies still wait, so B must get other
+    page-locked memory.  Collating both returns before the spin ends, and
+    afterwards A's arrays are still exactly A's (and B's B's)."""
+    from tgp_tpu_torch import graph as G
+
+    _skip_without_card()
+    rng = np.random.default_rng(7)
+    if shape == "small":
+        big = _dd_request(rng)
+        small = [(x[: x.shape[0] // 2], ei[:, (ei < x.shape[0] // 2).all(0)])
+                 for x, ei in big]
+    else:
+        big, small = (_large_request(rng, 65536, m) for m in (900_000,
+                                                              800_000))
+    kw = _bucket_of(big)
+    # two stages of this size cached: the second asked for while the first
+    # waits on its copy
+    torch.cuda._sleep(200_000_000)
+    G.from_graphs(big, device="cuda", **kw)
+    G.from_graphs(small, device="cuda", **kw)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    spun = torch.cuda.Event()
+    spun.record()
+    a = G.from_graphs(big, device="cuda", **kw)
+    b = G.from_graphs(small, device="cuda", **kw)
+    assert not spun.query()  # both collated while the card still spun
+    torch.cuda.synchronize()
+    assert oracle.mismatches(a, oracle.from_graphs(big, device="cuda",
+                                                   **kw)) == []
+    assert oracle.mismatches(b, oracle.from_graphs(small, device="cuda",
+                                                   **kw)) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort_edges", [False, True])
+@pytest.mark.parametrize("shape", ["small", "large"])
+def test_cuda_collation_enqueues_with_no_sync(shape, sort_edges):
+    """``from_graphs`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")`` and behind ~1 s of
+    spinning that it returns before: its checks are numpy's on the host,
+    and its copies, fills and CSR build read nothing back.  The batch
+    equals the oracle's."""
+    from tgp_tpu_torch import graph as G
+
+    _skip_without_card()
+    rng = np.random.default_rng(8)
+    graphs = (_dd_request(rng) if shape == "small"
+              else _large_request(rng, 65536, 1_000_000))
+    kw = dict(_bucket_of(graphs), sort_edges=sort_edges)
+    G.from_graphs(graphs, device="cuda", **kw)  # the stage cached
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    spun = torch.cuda.Event()
+    spun.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = G.from_graphs(graphs, device="cuda", **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not spun.query()  # enqueued while the card still spun
+    torch.cuda.synchronize()
+    assert oracle.mismatches(got, oracle.from_graphs(graphs, device="cuda",
+                                                     **kw)) == []
 
 
 def _sag_batch(device, seed=4):

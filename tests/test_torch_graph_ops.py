@@ -13,6 +13,8 @@ import tgp_tpu.ops.sparse as jsp
 from tgp_tpu.utils.activations import resolve_activation as j_act
 import tgp_tpu_torch.graph as tg
 import tgp_tpu_torch.ops.segment as tseg
+import collate_oracle as oracle
+from tgp_tpu_torch import PoolingClassifier, Predictor, get_pooler
 import tgp_tpu_torch.ops.sparse as tsp
 from tgp_tpu_torch.utils.activations import resolve_activation as t_act
 
@@ -83,45 +85,27 @@ def test_from_graphs_matches_jax(sort_edges, pad):
     _eq(tb.has_self_loop, want)
 
 
-def _csr_oracle(host: dict) -> dict:
-    """The receiver-sorted CSR layout of packed numpy arrays by numpy's
-    arithmetic (two stable argsorts, bincounts, an f64 weighted bincount
-    rounded to the weights' dtype): the oracle of the tensor build."""
-    N = host["x"].shape[0]
-    order = np.argsort(host["receivers"], kind="stable")
-    out = {k: host[k][order]
-           for k in ("senders", "receivers", "edge_weight", "edge_mask")}
-    s, r, w = out["senders"], out["receivers"], out["edge_weight"]
-    rows_pad = tg.ceil_to(max(N, 1), 256)
-    perm = np.argsort(s, kind="stable")
-    row_ptr = np.zeros(rows_pad + 1, np.int32)
-    row_ptr[1:] = np.cumsum(np.bincount(r, minlength=rows_pad))
-    row_ptr_t = np.zeros(rows_pad + 1, np.int32)
-    row_ptr_t[1:] = np.cumsum(np.bincount(s[perm], minlength=rows_pad))
-    out.update(row_ptr=row_ptr, senders_t=s[perm], receivers_t=r[perm],
-               edge_weight_t=w[perm], row_ptr_t=row_ptr_t,
-               in_degree=np.bincount(r, weights=np.abs(w), minlength=N)[
-                   :N].astype(w.dtype))
-    return out
-
-
 def _csr_case(name):
-    """``(graphs, from_graphs keywords)`` of one case of the CSR build:
-    edges in no order, self-loops and repeated edges in every graph with
-    edges."""
+    """``(graphs, from_graphs keywords)`` of one case of the collation and
+    the CSR build: edges in no order, self-loops and repeated edges in
+    every graph of more than one node with edges; weights passed (of three
+    kinds) or absent."""
     rng = np.random.default_rng(sum(map(ord, name)))
 
     def graph(n, e, weights):
         s, r = rng.integers(0, n, e), rng.integers(0, n, e)
         s[:3], r[:3] = 1, 1                     # a self-loop, three times
         s[3:6], r[3:6] = s[6], r[6]             # an edge four times
+        g = (rng.normal(size=(n, 3)).astype(np.float32), np.stack([s, r]))
+        if weights is None:
+            return g
         w = {"float": rng.random(e) + 0.1,
              "signed": rng.normal(size=e) * (rng.random(e) > 0.2),
              "integer": rng.integers(-3, 4, e)}[weights]
-        return (rng.normal(size=(n, 3)).astype(np.float32),
-                np.stack([s, r]), w.astype(np.float32))
+        return g + (w.astype(np.float32),)
 
     no_edges = (np.ones((7, 3), np.float32), np.zeros((2, 0), np.int64))
+    one_node = (np.full((1, 3), 2.0, np.float32), np.zeros((2, 2), np.int64))
     if name == "loops_and_repeats":
         return [graph(40, 200, "float")], {}
     if name == "signed_and_zero_weights":
@@ -135,11 +119,23 @@ def _csr_case(name):
     if name == "many_graphs":
         return [graph(int(n), int(4 * n), "signed") for n in (12, 30, 8)] + [
             no_edges, graph(25, 90, "integer")], {}
+    if name == "unweighted":
+        return [graph(40, 200, None), graph(9, 30, None)], {}
+    if name == "some_weighted":  # ones for the graphs without weights
+        return [graph(30, 100, None), graph(12, 40, "signed"), no_edges,
+                graph(20, 60, None)], {}
+    if name == "one_node":  # its two edges are both its self-loop
+        return [one_node, graph(20, 60, "float"),
+                (np.ones((1, 3), np.float32), np.zeros((2, 0), np.int64))], {}
+    if name == "explicit_budget":
+        return [graph(33, 120, "float"), one_node, graph(17, 50, "float")], \
+            dict(pad_nodes=64, pad_edges=256, max_nodes=48)
     raise ValueError(name)
 
 
 CSR_CASES = ["loops_and_repeats", "signed_and_zero_weights",
-             "integer_weights", "padded", "no_edges", "many_graphs"]
+             "integer_weights", "padded", "no_edges", "many_graphs",
+             "unweighted", "some_weighted", "one_node", "explicit_budget"]
 
 
 @pytest.mark.parametrize("case", CSR_CASES)
@@ -147,10 +143,13 @@ def test_csr_build_matches_numpy(case):
     """Every array equal to numpy's, ``in_degree`` too: its rows add in
     f64 in edge order, as ``bincount`` does."""
     graphs, kw = _csr_case(case)
-    host = tg._pack(graphs, kw.get("pad_nodes"), kw.get("pad_edges"), None,
-                    8, 128, np.float32)[0]
-    want = _csr_oracle(host)
+    host, _, _, max_nodes = oracle.pack(
+        graphs, kw.get("pad_nodes"), kw.get("pad_edges"),
+        kw.get("max_nodes"), 8, 128, np.float32)
+    want = oracle.csr_oracle(host)
     got = tg.from_graphs(graphs, sort_edges=True, device="cpu", **kw)
+    assert (got.num_graphs, got.max_nodes, got.edges_sorted) == (
+        len(graphs), max_nodes, True)
     assert got.row_ptr.shape[0] - 1 == tg.ceil_to(got.num_nodes, 256)
     for f in CSR_FIELDS + ("senders", "receivers", "edge_weight",
                            "edge_mask"):
@@ -158,7 +157,64 @@ def test_csr_build_matches_numpy(case):
         assert a.dtype == getattr(torch, str(b.dtype)), f
         np.testing.assert_array_equal(_np(a), b, err_msg=f)
     for f in ("x", "node_graph", "node_pos", "node_mask", "has_self_loop"):
-        np.testing.assert_array_equal(_np(getattr(got, f)), host[f])
+        a = getattr(got, f)
+        assert a.dtype == getattr(torch, str(host[f].dtype)), f
+        np.testing.assert_array_equal(_np(a), host[f], err_msg=f)
+
+
+@pytest.mark.parametrize("case", CSR_CASES)
+def test_collate_matches_oracle(case):
+    """Unsorted batches: every array equal in dtype, shape and bits to the
+    oracle's (the graphs packed into padded numpy arrays), and no CSR
+    layout.  Sorted ones are ``test_csr_build_matches_numpy``'s."""
+    graphs, kw = _csr_case(case)
+    got = tg.from_graphs(graphs, device="cpu", **kw)
+    assert oracle.mismatches(
+        got, oracle.from_graphs(graphs, device="cpu", **kw)) == []
+
+
+@pytest.mark.parametrize("sort_edges", [False, True])
+def test_predictor_batches_match_oracle(sort_edges):
+    """Nine graphs through ``Predictor(batch_size=8)``: two chunks, the
+    second cycle-padded to eight copies of the ninth graph, served after a
+    larger first chunk.  Each batch equals the oracle's of its chunk and
+    bucket, and so do the logits of a model fed either."""
+    rng = np.random.default_rng(9)
+    graphs = []
+    for i, (n, e) in enumerate([(40, 100), (35, 80), (30, 60), (1, 2),
+                                (25, 50), (45, 90), (7, 0), (50, 100),
+                                (17, 40)]):
+        ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+        g = (rng.normal(size=(n, 3)).astype(np.float32), ei)
+        graphs.append(g + ((rng.random(e) + 0.5).astype(np.float32),)
+                      if i % 3 == 1 else g)
+    model = PoolingClassifier(
+        get_pooler("topk", in_channels=16, ratio=0.5, device="cpu"),
+        num_classes=3, hidden=16, in_channels=3, device="cpu")
+    seen = []
+
+    def apply(batch):
+        seen.append(batch)
+        return model(batch)[0]
+
+    pred = Predictor(apply, batch_size=8, sort_edges=sort_edges,
+                     device="cpu")
+    out = pred(graphs)
+    assert out.shape == (9, 3) and len(seen) == 2
+    chunks = [graphs[:8], [graphs[8]] * 8]
+    # one bucket, the first chunk's real rows more than the second's
+    assert pred._budget(chunks[0]) == pred._budget(chunks[1])
+    assert [int(b.node_mask.sum()) for b in seen] == [233, 136]
+    assert [int(b.edge_mask.sum()) for b in seen] == [482, 320]
+    for chunk, got, rows in zip(chunks, seen, (out[:8], out[8:])):
+        pn, pe, mx = pred._budget(chunk)
+        want = oracle.from_graphs(chunk, pad_nodes=pn, pad_edges=pe,
+                                  max_nodes=mx, sort_edges=sort_edges,
+                                  device="cpu")
+        assert oracle.mismatches(got, want) == []
+        with torch.inference_mode():
+            logits = model(want)[0].float().numpy()
+        np.testing.assert_array_equal(rows, logits[:len(rows)])
 
 
 @pytest.mark.parametrize("case", ["many_graphs", "padded"])
@@ -175,6 +231,8 @@ def test_from_graphs_rejects_bad_input():
     x = np.zeros((3, 2), np.float32)
     with pytest.raises(ValueError, match="edge ids"):
         tg.from_graphs([(x, np.array([[0, 3], [1, 1]]))], device="cpu")
+    with pytest.raises(ValueError, match=r"got \[-1, 1\]"):
+        tg.from_graphs([(x, np.array([[0, 1], [-1, 1]]))], device="cpu")
     with pytest.raises(ValueError, match="at least one graph"):
         tg.from_graphs([], device="cpu")
     with pytest.raises(ValueError, match="budget"):

@@ -189,49 +189,55 @@ def test_chrome_trace_holds_one_annotation_a_record(tmp_path):
 
 @pytest.mark.parametrize("sort_edges", [False, True])
 def test_collate_counts_bytes_and_padding(sort_edges):
+    """``bytes`` counts the real rows written for the card, none padding:
+    ``x``'s rows, the ids, the weights only where a graph has them, and the
+    ``B + 1`` node offsets; the padding is built on the batch's device.
+    ``staged`` (page-locked staging) is False on the CPU."""
     graphs = _graphs(3, count=2)
     n = sum(g[0].shape[0] for g in graphs)
     e = sum(g[1].shape[1] for g in graphs)
+    weighted = [graphs[0] + (np.ones(graphs[0][1].shape[1], np.float32),),
+                graphs[1]]
     with _profiled():
         batch = from_graphs(graphs, pad_nodes=n + 9, pad_edges=e + 37,
                             sort_edges=sort_edges, device="cpu")
-    recs = {r["name"]: r for r in tracing.spans()}
+        from_graphs(weighted, pad_nodes=n + 9, pad_edges=e + 37,
+                    sort_edges=sort_edges, device="cpu")
+    recs = {}
+    for r in tracing.spans():
+        recs.setdefault(r["name"], []).append(r)
     assert batch.x.shape[0] == n + 9 and batch.senders.shape[0] == e + 37
     assert int(batch.node_mask.sum()) == n and int(batch.edge_mask.sum()) == e
     assert ("tgp.collate.csr" in recs) == sort_edges
-    # only the packed arrays are copied; the CSR layout is built after the
-    # copy, on the batch's device: present with sort_edges, not counted
+    # the CSR layout is built after the copy, on the batch's device:
+    # present with sort_edges, never copied
     layout = ("row_ptr", "senders_t", "receivers_t", "edge_weight_t",
               "row_ptr_t", "in_degree")
     assert all((getattr(batch, k) is not None) == sort_edges for k in layout)
-    copied = [v for k, v in vars(batch).items()
-              if isinstance(v, torch.Tensor) and k not in layout]
-    assert len(copied) == 9
-    h2d = recs["tgp.collate.h2d"]["attrs"]
-    assert h2d["bytes"] == sum(t.numel() * t.element_size() for t in copied)
-    # a padded node slot: x (F f32), node_graph, node_pos (i32), node_mask,
-    # has_self_loop (bool); an edge slot: senders, receivers (i32),
-    # edge_weight (f32), edge_mask
-    node_slot = 4 * F_IN + 4 + 4 + 1 + 1
-    edge_slot = 4 + 4 + 4 + 1
-    assert h2d["pad_bytes"] == 9 * node_slot + 37 * edge_slot
+    # x (F f32) a real node; senders, receivers (i32) a real edge, and the
+    # weight (f32) where a graph has one; three i32 node offsets
+    real = 4 * F_IN * n + 8 * e + 4 * 3
+    got = [r["attrs"] for r in recs["tgp.collate.h2d"]]
+    assert got == [dict(bytes=real, pad_bytes=0, staged=False),
+                   dict(bytes=real + 4 * e, pad_bytes=0, staged=False)]
     if sort_edges:
-        assert recs["tgp.collate.csr"]["attrs"] == dict(on_card=False,
-                                                        edges=e + 37)
+        assert recs["tgp.collate.csr"][0]["attrs"] == dict(on_card=False,
+                                                           edges=e + 37)
 
 
 @pytest.mark.parametrize("key, rows", [("new_array", 4), ("x", 3)])
 def test_collate_refuses_to_count_an_unclassified_array(key, rows):
     host = dict(x=np.zeros((4, 2), np.float32),
                 senders=np.zeros(6, np.int32),
-                edge_mask=np.zeros(6, bool))
+                receivers=np.zeros(6, np.int32),
+                node_offsets=np.zeros(2, np.int32))
     host[key] = np.zeros((rows, 2), np.float32)
     with pytest.raises((KeyError, ValueError), match=key):
-        G._copied_bytes(host, 3, 4, 5, 6)
+        G._copied_bytes(host, 4, 5, 1)
     del host[key]
-    if key == "new_array":
-        assert G._copied_bytes(host, 3, 4, 5, 6) == dict(
-            bytes=32 + 24 + 6, pad_bytes=8 + 4 + 1)
+    if key == "new_array":  # an edge row past the real ones is padding
+        assert G._copied_bytes(host, 4, 5, 1) == dict(
+            bytes=32 + 24 + 24 + 8, pad_bytes=4 + 4)
 
 
 @pytest.mark.parametrize("kind", ["sparse", "dense"])

@@ -8,9 +8,11 @@
   ``in_degree``), which the CUDA SpMM kernel reads.
 * :class:`DenseGraphBatch` — ``[B, Nmax, ...]`` padded tensors.
 
-Packing is host-side numpy, identical to ``tgp_tpu``'s, and its arrays
-are copied to ``device`` once; the CSR metadata is built after the copy,
-by tensor ops on ``device``, with the same bits as ``tgp_tpu``'s.
+Collation writes only a batch's real rows on the host (through
+page-locked staging and one asynchronous copy each on a CUDA device) and
+builds the padding, the masks, the per-node graph ids and positions, the
+self-loop marks and the CSR metadata by tensor ops on ``device``: the
+same bits as ``tgp_tpu``'s host packing.
 """
 
 from __future__ import annotations
@@ -161,7 +163,7 @@ class DenseGraphBatch:
 
 
 # ---------------------------------------------------------------------------
-# Collation: host-side packing (numpy), the CSR layout on the device
+# Collation: the real rows from the host, the rest built on the device
 # ---------------------------------------------------------------------------
 
 
@@ -187,107 +189,174 @@ def from_graphs(
     metadata as ``tgp_tpu.graph.from_graphs``).  Edge ids must lie in
     ``[0, n)`` of their graph: the CUDA kernels gather by them unchecked.
 
-    Traced as ``tgp.collate`` around ``tgp.collate.pack``,
-    ``tgp.collate.h2d`` (``bytes`` copied, ``pad_bytes`` of them padding)
-    and, with ``sort_edges``, ``tgp.collate.csr`` after the copy
-    (``on_card``: built on a CUDA device; ``edges``: the edge slots
-    sorted)."""
+    Only the real rows are written on the host: ``x``, the offset
+    ``senders``/``receivers``, the weights if any graph has them, and the
+    graphs' node offsets.  On a CUDA device they are written into one
+    page-locked staging tensor and copied asynchronously into the padded
+    device arrays; on the CPU, straight into those arrays.  The padding
+    and the arrays fixed by the graphs' sizes are then built on the
+    device (:func:`_fill`).
+
+    Traced as ``tgp.collate`` around ``tgp.collate.pack`` (the checks and
+    the host writes), ``tgp.collate.h2d`` (the copies and the fills;
+    ``bytes`` of real rows staged, ``pad_bytes`` of them padding, ``staged``:
+    through page-locked memory) and, with ``sort_edges``,
+    ``tgp.collate.csr`` (``on_card``: built on a CUDA device; ``edges``:
+    the edge slots sorted)."""
     device = resolve_device(device)
     if len(graphs) == 0:
         raise ValueError("from_graphs needs at least one graph")
+    B = len(graphs)
     with tracing.span("tgp.collate"):
         with tracing.span("tgp.collate.pack"):
-            host, n_tot, e_tot, max_nodes = _pack(
-                graphs, pad_nodes, pad_edges, max_nodes, node_multiple,
-                edge_multiple, dtype)
-        N, E = host["x"].shape[0], host["senders"].shape[0]
+            xs, eis, ews = _checked(graphs, dtype)
+            n_per = [x.shape[0] for x in xs]
+            n_tot, e_tot = sum(n_per), sum(ei.shape[1] for ei in eis)
+            if max_nodes is None:
+                max_nodes = max(n_per)
+            elif max_nodes < max(n_per):
+                raise ValueError(
+                    f"max_nodes={max_nodes} < largest graph ({max(n_per)})")
+            N = pad_nodes if pad_nodes is not None else ceil_to(
+                max(n_tot, 1), node_multiple)
+            E = pad_edges if pad_edges is not None else ceil_to(
+                max(e_tot, 1), edge_multiple)
+            if N < n_tot or E < e_tot:
+                raise ValueError(f"padding budget too small: need ({n_tot},"
+                                 f"{e_tot}), got ({N},{E})")
+            floats = torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+            t = dict(x=((N, xs[0].shape[1]), floats),
+                     senders=((E,), torch.int32),
+                     receivers=((E,), torch.int32),
+                     edge_weight=((E,), floats),
+                     node_offsets=((B + 1,), torch.int32))
+            t = {k: torch.empty(s, dtype=d, device=device)
+                 for k, (s, d) in t.items()}
+            weighted = any(ew is not None for ew in ews)
+            staged = device.type == "cuda"
+            real = _real_rows(t, dict(x=n_tot, senders=e_tot,
+                                      receivers=e_tot, node_offsets=B + 1,
+                                      **({"edge_weight": e_tot}
+                                         if weighted else {})), staged)
+            _write(real, xs, eis, ews)
         with tracing.span("tgp.collate.h2d") as h2d:
-            moved = {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                     for k, a in host.items()}
+            if staged:
+                for k, a in real.items():
+                    t[k][:a.shape[0]].copy_(a, non_blocking=True)
+            _fill(t, n_tot, e_tot, max_nodes, weighted)
             if h2d:
-                h2d.set(**_copied_bytes(host, n_tot, N, e_tot, E))
+                h2d.set(staged=staged, **_copied_bytes(real, n_tot, e_tot, B))
         if sort_edges:
             with tracing.span("tgp.collate.csr") as csr:
-                _csr_layout(moved, e_tot)
+                _csr_layout(t, e_tot)
                 if csr:
                     csr.set(on_card=device.type == "cuda", edges=E)
-    return GraphBatch(num_graphs=len(graphs), max_nodes=max_nodes,
-                      edges_sorted=sort_edges, **moved)
+    return GraphBatch(num_graphs=B, max_nodes=max_nodes,
+                      edges_sorted=sort_edges, **t)
 
 
-def _pack(graphs, pad_nodes, pad_edges, max_nodes, node_multiple,
-          edge_multiple, dtype):
-    """The graphs checked and copied into padded numpy arrays, with the
-    self-loop marks; also the real node and edge counts and
-    ``max_nodes``."""
-    B = len(graphs)
+def _checked(graphs, dtype):
+    """Each graph's ``x`` (2-D, in ``dtype``), ``edge_index`` (``[2, e]``
+    int64, ids checked) and weights (flat, in ``dtype``; None where the
+    graph has none)."""
     xs, eis, ews = [], [], []
     for g in graphs:
-        if len(g) == 3:
-            x, ei, ew = g
-        else:
-            x, ei = g
-            ew = None
+        x, ei, ew = g if len(g) == 3 else (*g, None)
         x = np.asarray(x, dtype=dtype)
         if x.ndim == 1:
             x = x[:, None]
         ei = np.asarray(ei, dtype=np.int64).reshape(2, -1)
-        if ei.size and (ei.min() < 0 or ei.max() >= x.shape[0]):
+        # one pass: as unsigned, a negative id reads 2**63 or more
+        if ei.size and ei.view(np.uint64).max() >= x.shape[0]:
             raise ValueError(f"edge ids must lie in [0, {x.shape[0]}), got "
                              f"[{ei.min()}, {ei.max()}]")
-        if ew is None:
-            ew = np.ones(ei.shape[1], dtype=dtype)
         xs.append(x)
         eis.append(ei)
-        ews.append(np.asarray(ew, dtype=dtype).reshape(-1))
+        ews.append(None if ew is None
+                   else np.asarray(ew, dtype=dtype).reshape(-1))
+    return xs, eis, ews
 
-    n_per = [x.shape[0] for x in xs]
-    e_per = [ei.shape[1] for ei in eis]
-    n_tot, e_tot = sum(n_per), sum(e_per)
-    if max_nodes is None:
-        max_nodes = max(n_per)
-    elif max_nodes < max(n_per):
-        raise ValueError(f"max_nodes={max_nodes} < largest graph ({max(n_per)})")
-    N = pad_nodes if pad_nodes is not None else ceil_to(max(n_tot, 1), node_multiple)
-    E = pad_edges if pad_edges is not None else ceil_to(max(e_tot, 1), edge_multiple)
-    if N < n_tot or E < e_tot:
-        raise ValueError(
-            f"padding budget too small: need ({n_tot},{e_tot}), got ({N},{E})"
-        )
-    F = xs[0].shape[1]
 
-    x_out = np.zeros((N, F), dtype=dtype)
-    senders = np.zeros(E, dtype=np.int32)
-    receivers = np.zeros(E, dtype=np.int32)
-    edge_weight = np.zeros(E, dtype=dtype)
-    node_graph = np.full(N, B - 1, dtype=np.int32)
-    node_pos = np.zeros(N, dtype=np.int32)
-    node_mask = np.zeros(N, dtype=bool)
-    edge_mask = np.zeros(E, dtype=bool)
+def _real_rows(t: dict, rows: dict, staged: bool) -> dict:
+    """Host tensors for the first ``rows[k]`` rows of each array ``t[k]``:
+    views of one page-locked tensor from PyTorch's caching host allocator
+    (``staged``), else the arrays' own rows.  Each array's stretch of the
+    stage starts 256-byte aligned and is sized for all its rows, so every
+    batch of a bucket asks the allocator for the same block.  The
+    allocator records an event for the non-blocking copy out of the
+    block and hands the block out again only after that event, so a later
+    batch never writes over bytes still being copied."""
+    if not staged:
+        return {k: t[k][:r] for k, r in rows.items()}
+    starts, size = {}, 0
+    for k in rows:
+        starts[k] = size
+        size += ceil_to(t[k].nbytes, 256)
+    stage = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+    return {k: stage[starts[k]:starts[k] + t[k][:r].nbytes].view(
+                t[k].dtype).view(t[k][:r].shape) for k, r in rows.items()}
 
+
+def _write(real: dict, xs, eis, ews) -> None:
+    """The graphs' real rows written in one pass each through the numpy
+    views of the host tensors ``real``: ``x``, the ids plus their graph's
+    node offset (int32, no int64 temporary), the weights (ones for a graph
+    without) where staged, and the ``B + 1`` node offsets.  Numpy's copies
+    run on the calling thread: torch's CPU copies split them over its
+    intra-op threads, which made requests of small graphs slower on a
+    shared host."""
+    x, senders, receivers, offsets = (
+        real[k].numpy() for k in ("x", "senders", "receivers",
+                                  "node_offsets"))
+    w = real["edge_weight"].numpy() if "edge_weight" in real else None
     n_off = e_off = 0
-    for g, (x, ei, ew) in enumerate(zip(xs, eis, ews)):
-        n, e = x.shape[0], ei.shape[1]
-        x_out[n_off : n_off + n] = x
-        node_graph[n_off : n_off + n] = g
-        node_pos[n_off : n_off + n] = np.arange(n)
-        node_mask[n_off : n_off + n] = True
-        senders[e_off : e_off + e] = ei[0] + n_off
-        receivers[e_off : e_off + e] = ei[1] + n_off
-        edge_weight[e_off : e_off + e] = ew
-        edge_mask[e_off : e_off + e] = True
+    offsets[0] = 0
+    for g, (xg, ei, ew) in enumerate(zip(xs, eis, ews)):
+        n, e = xg.shape[0], ei.shape[1]
+        x[n_off:n_off + n] = xg
+        for ids, out in ((ei[0], senders), (ei[1], receivers)):
+            np.add(ids, n_off, out=out[e_off:e_off + e], casting="unsafe")
+        if w is not None:
+            w[e_off:e_off + e] = 1 if ew is None else ew
         n_off += n
         e_off += e
-    # padding nodes keep node_pos clamped into range for scatter safety
-    node_pos[n_off:] = max_nodes - 1 if max_nodes > 0 else 0
+        offsets[g + 1] = n_off
 
-    has_self_loop = np.zeros(N, dtype=bool)
-    has_self_loop[senders[edge_mask & (senders == receivers)]] = True
-    host = dict(x=x_out, senders=senders, receivers=receivers,
-                edge_weight=edge_weight, node_graph=node_graph,
-                node_pos=node_pos, node_mask=node_mask, edge_mask=edge_mask,
-                has_self_loop=has_self_loop)
-    return host, n_tot, e_tot, max_nodes
+
+def _fill(t: dict, n_real: int, e_real: int, max_nodes: int,
+          weighted: bool) -> None:
+    """Complete the arrays ``t`` on their own device, whose first
+    ``n_real`` node and ``e_real`` edge rows are written, with the
+    padding and the arrays fixed by the graphs' node offsets (popped from
+    ``t``): tensor ops that read nothing back to the host.  Padding rows
+    of ``x``, ``senders``, ``receivers`` and ``edge_weight`` are 0, and
+    real weights 1 where no graph has any; ``node_graph`` counts the
+    graphs that end at or before a node (``B - 1`` on padding),
+    ``node_pos`` is a node's index in its graph (``max_nodes - 1`` on
+    padding); ``has_self_loop`` is an indexed write at the senders of
+    valid ``(i, i)`` edges, the other edges writing a spare slot."""
+    offsets = t.pop("node_offsets")
+    x, senders, receivers = t["x"], t["senders"], t["receivers"]
+    N, E, dev = x.shape[0], senders.shape[0], x.device
+    x[n_real:].zero_()
+    for k in ("senders", "receivers", "edge_weight"):
+        t[k][e_real:].zero_()
+    if not weighted:
+        t["edge_weight"][:e_real].fill_(1)
+    nodes = torch.arange(N, dtype=torch.int32, device=dev)
+    node_mask = nodes < n_real
+    node_graph = torch.searchsorted(offsets[1:], nodes, right=True,
+                                    out_int32=True).clamp_(
+                                        max=offsets.shape[0] - 2)
+    node_pos = torch.where(node_mask,
+                           nodes - offsets.index_select(0, node_graph),
+                           max(max_nodes - 1, 0))
+    edge_mask = torch.arange(E, dtype=torch.int32, device=dev) < e_real
+    loops = torch.where(edge_mask & (senders == receivers), senders, N)
+    has_self_loop = torch.zeros(N + 1, dtype=torch.bool, device=dev)
+    has_self_loop.index_fill_(0, loops.long(), True)
+    t.update(node_graph=node_graph, node_pos=node_pos, node_mask=node_mask,
+             edge_mask=edge_mask, has_self_loop=has_self_loop[:N])
 
 
 def _csr_layout(t: dict, e_real: int) -> None:
@@ -336,32 +405,36 @@ def _csr_layout(t: dict, e_real: int) -> None:
     )
 
 
-#: the copied arrays by what their first axis indexes: node slots or edge
-#: slots
-_NODE_ARRAYS = ("x", "node_graph", "node_pos", "node_mask", "has_self_loop")
-_EDGE_ARRAYS = ("senders", "receivers", "edge_weight", "edge_mask")
+#: the arrays of real rows staged (copied to a CUDA device) by what their
+#: first axis indexes: nodes, edges, or the ``B + 1`` graph boundaries
+_NODE_ARRAYS = ("x",)
+_EDGE_ARRAYS = ("senders", "receivers", "edge_weight")
+_GRAPH_ARRAYS = ("node_offsets",)
 
 
-def _copied_bytes(host: dict, n_real: int, n_pad: int, e_real: int,
-                  e_pad: int) -> dict:
-    """Bytes copied to the device, and the part of them that pads: each
-    node-indexed array's share of padded node slots, each edge-indexed
-    array's share of padded edge slots.  An array of neither kind raises,
-    so a new one is classified before it is counted."""
+def _copied_bytes(real: dict, n_real: int, e_real: int,
+                  num_graphs: int) -> dict:
+    """Bytes of the staged arrays ``real``, and the part of them that pads:
+    each array's rows past the real rows of its kind.  An array of no
+    kind, or with fewer rows than its kind's real ones, raises, so a new
+    one is classified before it is counted."""
     pad = 0
-    for k, a in host.items():
+    for k, a in real.items():
         if k in _NODE_ARRAYS:
-            real, slots = n_real, n_pad
+            want = n_real
         elif k in _EDGE_ARRAYS:
-            real, slots = e_real, e_pad
+            want = e_real
+        elif k in _GRAPH_ARRAYS:
+            want = num_graphs + 1
         else:
             raise KeyError(f"collated array {k!r} is not classified as "
-                           "node- or edge-indexed")
-        if a.shape[0] != slots:
-            raise ValueError(f"collated array {k!r} has {a.shape[0]} rows, "
-                             f"not {slots} slots")
-        pad += a.nbytes // slots * (slots - real) if slots else 0
-    return dict(bytes=sum(a.nbytes for a in host.values()), pad_bytes=pad)
+                           "node-, edge- or graph-indexed")
+        rows = a.shape[0]
+        if rows < want:
+            raise ValueError(f"collated array {k!r} has {rows} rows, "
+                             f"fewer than its {want} real ones")
+        pad += a.nbytes // rows * (rows - want) if rows else 0
+    return dict(bytes=sum(a.nbytes for a in real.values()), pad_bytes=pad)
 
 
 # ---------------------------------------------------------------------------
