@@ -687,7 +687,7 @@ def phase_kernels(batch):
     # the real edges alone, in both layouts
     real = batch.edge_mask
     idx_r, w_r = idx[real].contiguous(), w[real].contiguous()
-    rp_r = K.build_row_ptr(batch.receivers[real], rows)
+    rp_r = K.csr_offsets(batch.receivers[real], rows)
     real_t = real[torch.argsort(batch.senders.long(), stable=True)]
 
     def sparse_mm(values, cols, dense):
@@ -737,7 +737,7 @@ def phase_kernels(batch):
     a_t = torch.sparse_csr_tensor(rp_t, idx_t, w_tb.to(torch.bfloat16),
                                   size=(rows, N), check_invariants=False)
     idx_tr, w_tr = idx_t[real_t].contiguous(), w_t[real_t].contiguous()
-    rp_tr = K.build_row_ptr(batch.senders_t[real_t], rows)
+    rp_tr = K.csr_offsets(batch.senders_t[real_t], rows)
     name = "K1 spmm_csr backward d_h F=128 bfloat16"
     modes[name] = check_mode(
         name, lambda: K.spmm_csr(g, w_t, None, idx_t, None, rp_t, None,

@@ -63,7 +63,7 @@ def main() -> int:
                                             device="cuda", dtype=torch.int32),
                          b.senders)
     real = b.edge_mask
-    rp_real = K.build_row_ptr(b.receivers[real], b.row_ptr.shape[0] - 1)
+    rp_real = K.csr_offsets(b.receivers[real], b.row_ptr.shape[0] - 1)
     modes = {
         "K1 F=128 bfloat16": (x16, w, b.senders, b.row_ptr),
         "K1 F=128 bfloat16, padding senders spread": (x16, w, spread,

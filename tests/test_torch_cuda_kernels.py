@@ -2061,6 +2061,7 @@ def test_cuda_gtvconv_csr_route_matches_generic_and_repeats(delta,
     within 1e-4), K1 twice forward and once backward, two runs of the
     CSR route equal bit for bit, and the CPU's generic route beside it."""
     from tgp_tpu_torch.mp import gtvconv as G
+    from tgp_tpu_torch.ops import sparse as S
 
     _skip_without_card()
     batch = _gtv_batch("cuda")
@@ -2070,16 +2071,16 @@ def test_cuda_gtvconv_csr_route_matches_generic_and_repeats(delta,
         conv.bias.fill_(0.1)
     runs = {}
     for route in (True, False):
-        monkeypatch.setattr(G, "use_kernel_spmm", lambda *a: route)
+        monkeypatch.setattr(S, "use_kernel_spmm", lambda *a: route)
         before = K.spmm_csr.launches
         runs[route] = _gtv_run(conv, batch)
         assert K.spmm_csr.launches - before == (3 if route else 0)
-    monkeypatch.setattr(G, "use_kernel_spmm", lambda *a: True)
+    monkeypatch.setattr(S, "use_kernel_spmm", lambda *a: True)
     again = _gtv_run(conv, batch)
     assert all(torch.equal(a, b) for a, b in zip(runs[True], again))
     cpu = G.GTVConv(8, 16, delta_coeff=delta, device="cpu")
     cpu.load_state_dict(conv.state_dict())
-    monkeypatch.setattr(G, "use_kernel_spmm", lambda *a: False)
+    monkeypatch.setattr(S, "use_kernel_spmm", lambda *a: False)
     ref = _gtv_run(cpu, batch.to("cpu"))
     for i, (csr, gen, c) in enumerate(zip(runs[True], runs[False], ref)):
         tol = 1e-5 if i == 0 else 1e-4

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tgp_tpu_torch.ops.sparse as tsp
 import tgp_tpu_torch.poolers._masked as t_masked
 from tgp_tpu.graph import from_graphs as j_from
 from tgp_tpu.mp.gcn import GCNConv as JGCN
@@ -247,7 +248,7 @@ def test_auto_pool_mode(monkeypatch):
     assert pool(tb).so.extras.get("pool_mode") is None  # CPU: compact
     # in the kernel regime auto takes masked, unless the masked path would
     # compute something else: a non-transpose lift or a normalized adjacency
-    monkeypatch.setattr(t_masked, "use_kernel_spmm", lambda *a: True)
+    monkeypatch.setattr(tsp, "use_kernel_spmm", lambda *a: True)
     assert pool(tb).so.extras.get("pool_mode") == "masked"
     for kw in (dict(s_inv_op="inverse"), dict(degree_norm=True),
                dict(edge_weight_norm=True)):

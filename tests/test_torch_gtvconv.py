@@ -21,8 +21,8 @@ from tgp_tpu.graph import to_dense as j_dense
 from tgp_tpu.mp.gtvconv import GTVConv as JGTV
 from tgp_tpu_torch.graph import from_graphs as t_from
 from tgp_tpu_torch.graph import to_dense as t_dense
-from tgp_tpu_torch.mp import gtvconv as gtv_mod
 from tgp_tpu_torch.mp.gtvconv import GTVConv
+from tgp_tpu_torch.ops import sparse as tsp
 from tgp_tpu_torch.ops.kernels import segment_spmm as K
 
 torch.set_num_threads(1)
@@ -112,7 +112,7 @@ def test_sparse_routes_match_jax(route, delta, monkeypatch):
     monkeypatch.setattr(GTVConv, "_csr", csr)
     monkeypatch.setattr(K, "spmm_csr", k1)
     if route == "csr":
-        monkeypatch.setattr(gtv_mod, "use_kernel_spmm", lambda *a: True)
+        monkeypatch.setattr(tsp, "use_kernel_spmm", lambda *a: True)
     rng = np.random.default_rng(7)
     x = np.asarray(jb.x)
     cot = rng.normal(size=(x.shape[0], F_OUT)).astype(np.float32)
@@ -152,7 +152,7 @@ def test_eps_clamp_on_identical_features(route, monkeypatch):
     tb = t_from(graphs, pad_nodes=32, pad_edges=160, device="cpu",
                 sort_edges=(route == "csr"))
     if route == "csr":
-        monkeypatch.setattr(gtv_mod, "use_kernel_spmm", lambda *a: True)
+        monkeypatch.setattr(tsp, "use_kernel_spmm", lambda *a: True)
     if route == "dense":
         jb, tb = j_dense(jb), t_dense(tb)
     jm, jp = _jax_params(jb, 1.0)
@@ -172,7 +172,7 @@ def test_padding_invariance(route, monkeypatch):
     gradient."""
     graphs = _graphs()
     if route == "csr":
-        monkeypatch.setattr(gtv_mod, "use_kernel_spmm", lambda *a: True)
+        monkeypatch.setattr(tsp, "use_kernel_spmm", lambda *a: True)
     outs = []
     for pad in ((32, 160), (64, 512)):
         tb = t_from(graphs, pad_nodes=pad[0], pad_edges=pad[1],
@@ -198,7 +198,7 @@ def test_csr_route_matches_generic_route(delta, monkeypatch):
                 device="cpu")
     got = []
     for route in (False, True):
-        monkeypatch.setattr(gtv_mod, "use_kernel_spmm", lambda *a: route)
+        monkeypatch.setattr(tsp, "use_kernel_spmm", lambda *a: route)
         m = GTVConv(F_IN, F_OUT, delta_coeff=delta, device="cpu",
                     generator=torch.Generator().manual_seed(2))
         x = tb.x.clone().requires_grad_(True)

@@ -147,8 +147,10 @@ def test_segment_sum_sorted_plain_matches_pallas(F, dtype, with_row_ptr):
 
 
 def test_build_row_ptr_drops_out_of_range_receivers():
+    """K2's offsets (``csr_offsets`` over 4 rows padded to 256) leave out
+    a receiver past the padded rows, as the JAX collator does."""
     r = torch.tensor([0, 0, 1, 3, 3, 3, 300], dtype=torch.int32)
-    rp = K.build_row_ptr(r, 4)
+    rp = K.csr_offsets(r, 256)
     assert rp.shape == (257,) and rp.dtype == torch.int32
     assert rp[:6].tolist() == [0, 2, 3, 3, 6, 6]
     assert int(rp[-1]) == 6  # id 300 lies past rows_pad = 256

@@ -225,21 +225,6 @@ def test_collate_counts_bytes_and_padding(sort_edges):
                                                            edges=e + 37)
 
 
-@pytest.mark.parametrize("key, rows", [("new_array", 4), ("x", 3)])
-def test_collate_refuses_to_count_an_unclassified_array(key, rows):
-    host = dict(x=np.zeros((4, 2), np.float32),
-                senders=np.zeros(6, np.int32),
-                receivers=np.zeros(6, np.int32),
-                node_offsets=np.zeros(2, np.int32))
-    host[key] = np.zeros((rows, 2), np.float32)
-    with pytest.raises((KeyError, ValueError), match=key):
-        G._copied_bytes(host, 4, 5, 1)
-    del host[key]
-    if key == "new_array":  # an edge row past the real ones is padding
-        assert G._copied_bytes(host, 4, 5, 1) == dict(
-            bytes=32 + 24 + 24 + 8, pad_bytes=4 + 4)
-
-
 @pytest.mark.parametrize("kind", ["sparse", "dense"])
 def test_logits_are_bit_identical_traced(kind):
     model, batch = MODELS[kind](), _batch(kind)

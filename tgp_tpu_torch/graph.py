@@ -26,6 +26,7 @@ import torch
 
 from tgp_tpu_torch import tracing
 from tgp_tpu_torch._device import DeviceLike, resolve_device
+from tgp_tpu_torch.ops.kernels.segment_spmm import csr_layouts
 from tgp_tpu_torch.ops.segment import node_cells, segment_sum
 
 __all__ = ["GraphBatch", "DenseGraphBatch", "from_graphs", "to_dense",
@@ -199,8 +200,9 @@ def from_graphs(
 
     Traced as ``tgp.collate`` around ``tgp.collate.pack`` (the checks and
     the host writes), ``tgp.collate.h2d`` (the copies and the fills;
-    ``bytes`` of real rows staged, ``pad_bytes`` of them padding, ``staged``:
-    through page-locked memory) and, with ``sort_edges``,
+    ``bytes`` of real rows staged, ``pad_bytes`` 0: the stage holds no
+    padding; ``staged``: through page-locked memory) and, with
+    ``sort_edges``,
     ``tgp.collate.csr`` (``on_card``: built on a CUDA device; ``edges``:
     the edge slots sorted)."""
     device = resolve_device(device)
@@ -245,7 +247,9 @@ def from_graphs(
                     t[k][:a.shape[0]].copy_(a, non_blocking=True)
             _fill(t, n_tot, e_tot, max_nodes, weighted)
             if h2d:
-                h2d.set(staged=staged, **_copied_bytes(real, n_tot, e_tot, B))
+                # the stage holds real rows only (_real_rows): none pads
+                h2d.set(staged=staged, pad_bytes=0,
+                        bytes=sum(a.nbytes for a in real.values()))
         if sort_edges:
             with tracing.span("tgp.collate.csr") as csr:
                 _csr_layout(t, e_tot)
@@ -362,79 +366,44 @@ def _fill(t: dict, n_real: int, e_real: int, max_nodes: int,
 def _csr_layout(t: dict, e_real: int) -> None:
     """Sort the edges of the copied arrays ``t`` (the first ``e_real``
     real, the rest padding) by receiver, in place, and add the CSR
-    metadata: ``row_ptr``, the sender-sorted transpose layout and
-    ``in_degree``.  Tensor ops on the arrays' own device that read
-    nothing back to the host, with ``tgp_tpu``'s bits on any device: both
-    sorts are stable, so every integer array has one answer; the offsets
-    are ``searchsorted`` of each row id in the sorted keys; ``in_degree``
-    adds each row's |w| in f64 one after another, in edge order (one thread
-    a row on the card, no atomics), as numpy's ``bincount`` does, and
-    rounds the sum to the weights' dtype."""
+    metadata: ``row_ptr``, the sender-sorted transpose layout (both from
+    :func:`~tgp_tpu_torch.ops.kernels.segment_spmm.csr_layouts`, rows
+    padded to 256 on both sides) and ``in_degree``.  Tensor ops on the
+    arrays' own device that read nothing back to the host, with
+    ``tgp_tpu``'s bits on any device: ``in_degree`` adds each row's |w| in
+    f64 one after another, in edge order (one thread a row on the card,
+    no atomics), as numpy's ``bincount`` does, and rounds the sum to the
+    weights' dtype."""
     N, E = t["x"].shape[0], t["receivers"].shape[0]
-    receivers, order = torch.sort(t["receivers"], stable=True)
-    senders, edge_weight, edge_mask = (
-        t[k].index_select(0, order)
-        for k in ("senders", "edge_weight", "edge_mask"))
-    rows = torch.arange(ceil_to(max(N, 1), 256) + 1, dtype=torch.int32,
-                        device=receivers.device)
-    row_ptr = torch.searchsorted(receivers, rows, out_int32=True)
-    senders_t, perm = torch.sort(senders, stable=True)
+    rows = ceil_to(max(N, 1), 256)
+    csr = csr_layouts(t["senders"], t["receivers"], rows, rows)
+    edge_weight, edge_mask = (t[k].index_select(0, csr.order)
+                              for k in ("edge_weight", "edge_mask"))
+    row_ptr = csr.row_ptr
     # [E, 1] data: each row added in edge order on the card too (1-D data
     # takes another order there); unsafe: no check reads the offsets back.
     # The padding edges, zeros that end row 0 (the stable sort keeps them
     # after its real edges) and leave its sum's bits alone, are cut into
     # segments of their own of at most 256, so no thread walks them all.
     pad_starts = row_ptr[1:2] - (E - e_real) + torch.arange(
-        0, E - e_real, 256, dtype=torch.int32, device=rows.device)
+        0, E - e_real, 256, dtype=torch.int32, device=row_ptr.device)
     sums = torch.segment_reduce(
         edge_weight.abs().to(torch.float64)[:, None], "sum",
         offsets=torch.cat([row_ptr[:1], pad_starts, row_ptr[1:N + 1]]),
         unsafe=True)[:, 0]
     in_degree = torch.cat([sums[:1], sums[1 + pad_starts.shape[0]:]])[:N]
     t.update(
-        senders=senders,
-        receivers=receivers,
+        senders=csr.senders,
+        receivers=csr.receivers,
         edge_weight=edge_weight,
         edge_mask=edge_mask,
         row_ptr=row_ptr,
-        senders_t=senders_t,
-        receivers_t=receivers.index_select(0, perm),
-        edge_weight_t=edge_weight.index_select(0, perm),
-        row_ptr_t=torch.searchsorted(senders_t, rows, out_int32=True),
+        senders_t=csr.senders_t,
+        receivers_t=csr.receivers_t,
+        edge_weight_t=edge_weight.index_select(0, csr.perm),
+        row_ptr_t=csr.row_ptr_t,
         in_degree=in_degree.to(edge_weight.dtype),
     )
-
-
-#: the arrays of real rows staged (copied to a CUDA device) by what their
-#: first axis indexes: nodes, edges, or the ``B + 1`` graph boundaries
-_NODE_ARRAYS = ("x",)
-_EDGE_ARRAYS = ("senders", "receivers", "edge_weight")
-_GRAPH_ARRAYS = ("node_offsets",)
-
-
-def _copied_bytes(real: dict, n_real: int, e_real: int,
-                  num_graphs: int) -> dict:
-    """Bytes of the staged arrays ``real``, and the part of them that pads:
-    each array's rows past the real rows of its kind.  An array of no
-    kind, or with fewer rows than its kind's real ones, raises, so a new
-    one is classified before it is counted."""
-    pad = 0
-    for k, a in real.items():
-        if k in _NODE_ARRAYS:
-            want = n_real
-        elif k in _EDGE_ARRAYS:
-            want = e_real
-        elif k in _GRAPH_ARRAYS:
-            want = num_graphs + 1
-        else:
-            raise KeyError(f"collated array {k!r} is not classified as "
-                           "node-, edge- or graph-indexed")
-        rows = a.shape[0]
-        if rows < want:
-            raise ValueError(f"collated array {k!r} has {rows} rows, "
-                             f"fewer than its {want} real ones")
-        pad += a.nbytes // rows * (rows - want) if rows else 0
-    return dict(bytes=sum(a.nbytes for a in real.values()), pad_bytes=pad)
 
 
 # ---------------------------------------------------------------------------

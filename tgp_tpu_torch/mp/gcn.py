@@ -37,13 +37,14 @@ import torch
 from torch import nn
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
-from tgp_tpu_torch.graph import DenseGraphBatch, GraphBatch
+from tgp_tpu_torch.graph import DenseGraphBatch, GraphBatch, ceil_to
 from tgp_tpu_torch.ops.segment import gather_rows, segment_sum
 from tgp_tpu_torch.ops.sparse import (
+    _spmm_csr_batch,
     add_remaining_self_loops,
     normalize_adj_sym,
     spmm,
-    use_kernel_spmm,
+    spmm_route,
 )
 from tgp_tpu_torch.utils.linear import apply_linear, lecun_normal_linear
 
@@ -164,15 +165,11 @@ class GCNConv(nn.Module):
         if isinstance(batch, DenseGraphBatch):
             out = self._dense(batch, h)
         else:
-            want = self.use_kernel
-            if want is None:
-                want = use_kernel_spmm(batch.num_edges, batch.edges_sorted,
-                                       h.device)
-            if want and batch.edges_sorted:
-                if batch.row_ptr is not None:
-                    out = self._csr(batch, h)
-                else:
-                    out = self._sorted(batch, h)
+            route = spmm_route(batch, self.use_kernel)
+            if route == "csr":
+                out = self._csr(batch, h)
+            elif route == "sorted":
+                out = self._sorted(batch, h)
             else:
                 s, r, w = gcn_norm(batch, self.add_self_loops)
                 out = spmm(s, r, w, h, batch.num_nodes)
@@ -207,28 +204,24 @@ class GCNConv(nn.Module):
         for the degree when the collator's ``in_degree`` is gone); the
         SpMM's gradient runs the kernel over the collator's transpose
         layout."""
-        from tgp_tpu_torch.ops.kernels.segment_spmm import spmm_csr
-
-        N = batch.num_nodes
         nm = batch.node_mask
         w = torch.where(batch.edge_mask, batch.edge_weight, 0.0).to(
             torch.float32)
         # zero on padding edges, and on the edges masked pooling removed
         w_t = (None if batch.edge_weight_t is None
                else batch.edge_weight_t.to(torch.float32))
-        layout = (batch.senders, batch.receivers, batch.row_ptr,
-                  batch.receivers_t, batch.senders_t, batch.row_ptr_t, N)
         if batch.in_degree is not None:
             deg = batch.in_degree.to(torch.float32)
         else:
             # masked/pooled graph: deg[r] = Σ |w_e| · m[send_e]
-            deg = spmm_csr(nm.to(torch.float32)[:, None], w.abs(),
-                           None if w_t is None else w_t.abs(), *layout)[:, 0]
+            deg = _spmm_csr_batch(batch, nm.to(torch.float32)[:, None],
+                                  w.abs(),
+                                  None if w_t is None else w_t.abs())[:, 0]
         if self.add_self_loops:
             unit = _unit_loops(batch).to(torch.float32)
             deg = deg + unit
         dinv = _dinv(deg) * nm.to(torch.float32)
-        out = spmm_csr(h * dinv[:, None].to(h.dtype), w, w_t, *layout)
+        out = _spmm_csr_batch(batch, h * dinv[:, None].to(h.dtype), w, w_t)
         out = out * dinv[:, None].to(out.dtype)
         if self.add_self_loops:
             out = out + h * (dinv * dinv * unit)[:, None].to(h.dtype)
@@ -238,7 +231,7 @@ class GCNConv(nn.Module):
         """Receiver-sorted batch without CSR metadata: the degree and the
         normalized messages through the sorted segment-sum kernel (K2), in
         a fixed order, over one set of offsets."""
-        from tgp_tpu_torch.ops.kernels.segment_spmm import (build_row_ptr,
+        from tgp_tpu_torch.ops.kernels.segment_spmm import (csr_offsets,
                                                             segment_sum_sorted)
 
         N = batch.num_nodes
@@ -247,10 +240,10 @@ class GCNConv(nn.Module):
         if batch.node_mask_shrunk:
             nm = batch.node_mask
             w = w * (nm[s] & nm[r])
-        # one set of offsets for both sums; as segment_sum does, receivers
-        # outside [0, N) add nothing (those in [N, rows_pad) land in rows
-        # past N, the rest are not counted)
-        row_ptr = build_row_ptr(batch.receivers, N)
+        # one set of offsets for both sums, rows padded to 256; as
+        # segment_sum does, receivers outside [0, N) add nothing (those in
+        # [N, rows_pad) land in rows past N, the rest are not counted)
+        row_ptr = csr_offsets(batch.receivers, ceil_to(N, 256))
         deg = segment_sum_sorted(w.abs().to(torch.float32)[:, None].contiguous(),
                                  batch.receivers, N, row_ptr)[:, 0]
         if self.add_self_loops:
@@ -318,23 +311,12 @@ class GraphConv(nn.Module):
     def propagate(self, batch: GraphBatch, x: Tensor) -> Tensor:
         """``A X`` over the valid edges (and, on a masked pooled graph, the
         kept nodes), ``[N, F]`` in ``x``'s dtype."""
-        want = self.use_kernel
-        if want is None:
-            want = use_kernel_spmm(batch.num_edges, batch.edges_sorted,
-                                   x.device)
         w = torch.where(batch.edge_mask, batch.edge_weight, 0.0)
-        if want and batch.edges_sorted and batch.row_ptr is not None:
-            from tgp_tpu_torch.ops.kernels.segment_spmm import spmm_csr
-
+        if spmm_route(batch, self.use_kernel) == "csr":
             # masked senders add nothing; gradients stay exact because the
             # mask scales x, not the edge list
             nm = batch.node_mask[:, None].to(x.dtype)
-            w_t = (None if batch.edge_weight_t is None
-                   else batch.edge_weight_t.to(torch.float32))
-            return spmm_csr((x * nm).contiguous(), w.to(torch.float32), w_t,
-                            batch.senders, batch.receivers, batch.row_ptr,
-                            batch.receivers_t, batch.senders_t,
-                            batch.row_ptr_t, batch.num_nodes)
+            return _spmm_csr_batch(batch, x * nm, w, batch.edge_weight_t)
         if batch.node_mask_shrunk:
             nm = batch.node_mask
             w = w * (nm[batch.senders.long()] & nm[batch.receivers.long()])

@@ -42,7 +42,7 @@ from torch import nn
 from tgp_tpu_torch._device import DeviceLike, resolve_device
 from tgp_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from tgp_tpu_torch.ops.segment import gather_rows, segment_sum
-from tgp_tpu_torch.ops.sparse import use_kernel_spmm
+from tgp_tpu_torch.ops.sparse import spmm_route
 from tgp_tpu_torch.utils.activations import resolve_activation
 
 __all__ = ["GTVConv"]
@@ -92,8 +92,7 @@ class GTVConv(nn.Module):
         if isinstance(batch, DenseGraphBatch):
             out = self._dense(batch, h)
         else:
-            if (use_kernel_spmm(batch.num_edges, batch.edges_sorted,
-                                h.device) and batch.row_ptr is not None):
+            if spmm_route(batch) == "csr":
                 out = self._csr(batch, h)
             else:
                 out = self._generic(batch, h)

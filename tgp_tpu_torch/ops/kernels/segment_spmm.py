@@ -71,6 +71,7 @@ fallback.  Each wrapper counts its launches, the backward's included, in
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -83,7 +84,8 @@ __all__ = ["spmm_csr", "spmm_csr_plain", "segment_sum_sorted",
            "sorted_segment_sum_plain", "segment_route", "gather_segment_sum",
            "gather_segment_sum_plain", "spmm_sorted", "banded_sorted_spmm",
            "banded_sorted_spmm_plain", "banded_route", "spmm_banded",
-           "check_band_contract", "sort_edges_csr", "build_row_ptr"]
+           "check_band_contract", "sort_edges_csr", "csr_offsets",
+           "csr_layouts"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: most edges of one row that one warp sums in ``segment_spmm.cu``'s wide
@@ -128,20 +130,49 @@ def banded_route(x: torch.Tensor) -> str:
     return "vector" if aligned else "element"
 
 
-def build_row_ptr(receivers_sorted: torch.Tensor, num_rows: int,
-                  multiple: int = 256) -> torch.Tensor:
-    """``[rows_pad+1]`` int32 CSR offsets of ascending receivers, rows
-    padded to a multiple of ``multiple``; receivers outside ``[0,
-    rows_pad)`` are not counted (as ``tgp_tpu``'s ``segment_sum`` drops
-    them)."""
-    rows_pad = ((num_rows + multiple - 1) // multiple) * multiple
-    r = receivers_sorted.to(torch.int64)
-    ok = (r >= 0) & (r < rows_pad)
-    counts = torch.zeros(rows_pad, dtype=torch.int64, device=r.device)
-    counts.index_add_(0, torch.where(ok, r, 0), ok.to(torch.int64))
-    row_ptr = torch.zeros(rows_pad + 1, dtype=torch.int32, device=r.device)
-    row_ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
-    return row_ptr
+def _rows_pad(rows: int, multiple: int = 256) -> int:
+    """The rows of K2's (256) and K5's (128) offsets."""
+    return -(-rows // multiple) * multiple
+
+
+def csr_offsets(keys_sorted: torch.Tensor, rows: int,
+                ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[rows + 1]`` int32 CSR offsets of the ascending ``keys_sorted``,
+    the one source of the kernels' offsets: entry ``r`` counts the keys
+    below ``r``, so keys at or past ``rows`` are not counted (a caller
+    keys masked or out-of-range ids to ``rows`` first).  By
+    ``torch.searchsorted``, with no host sync; ``ids``: a ready ``arange``
+    of at least ``rows + 1`` in the keys' dtype."""
+    ids = (torch.arange(rows + 1, dtype=keys_sorted.dtype,
+                        device=keys_sorted.device) if ids is None
+           else ids[:rows + 1])
+    return torch.searchsorted(keys_sorted, ids, out_int32=True)
+
+
+CsrLayouts = collections.namedtuple("CsrLayouts", (
+    "order", "senders", "receivers", "row_ptr",
+    "perm", "senders_t", "receivers_t", "row_ptr_t"))
+
+
+def csr_layouts(senders: torch.Tensor, receivers: torch.Tensor, rows: int,
+                rows_t: int) -> CsrLayouts:
+    """K1's input for the edges ``senders → receivers`` (int ids of one
+    dtype): ``order``, a stable sort by receiver, the edges in that order
+    and the ``[rows + 1]`` offsets ``row_ptr``; then the transpose layout:
+    ``perm``, a stable sort of those edges by sender (so each sender's
+    edges ascend by receiver), the edges in that order and the ``[rows_t
+    + 1]`` offsets ``row_ptr_t``.  Ids at or past a side's rows are not
+    counted.  Tensor ops on the ids' device that read nothing back to the
+    host, with one answer on any device."""
+    receivers_s, order = torch.sort(receivers, stable=True)
+    senders_s = senders.index_select(0, order)
+    senders_t, perm = torch.sort(senders_s, stable=True)
+    ids = torch.arange(max(rows, rows_t) + 1, dtype=receivers.dtype,
+                       device=receivers.device)
+    return CsrLayouts(order, senders_s, receivers_s,
+                      csr_offsets(receivers_s, rows, ids), perm, senders_t,
+                      receivers_s.index_select(0, perm),
+                      csr_offsets(senders_t, rows_t, ids))
 
 
 def _band_window_base(senders_sorted: torch.Tensor, row_ptr: torch.Tensor,
@@ -218,7 +249,7 @@ def segment_sum_sorted_plain(msgs: torch.Tensor,
                              ) -> torch.Tensor:
     """Plain PyTorch :func:`segment_sum_sorted`."""
     if row_ptr is None:
-        row_ptr = build_row_ptr(receivers_sorted, num_rows)
+        row_ptr = csr_offsets(receivers_sorted, _rows_pad(num_rows))
     return _csr_sum_plain(msgs, None, None, row_ptr, num_rows)
 
 
@@ -548,7 +579,7 @@ def segment_sum_sorted(msgs: torch.Tensor, receivers_sorted: torch.Tensor,
     (``[rows_pad+1]``, rows_pad a multiple of 256 ≥ num_rows) skips
     building the offsets from ``receivers_sorted``."""
     if row_ptr is None:
-        row_ptr = build_row_ptr(receivers_sorted, num_rows)
+        row_ptr = csr_offsets(receivers_sorted, _rows_pad(num_rows))
     elif (row_ptr.shape[0] - 1) % 256 or row_ptr.shape[0] - 1 < num_rows:
         raise ValueError(f"row_ptr of length {row_ptr.shape[0]} does not "
                          f"cover {num_rows} rows padded to 256")
@@ -723,8 +754,11 @@ class _BandedSpmm(torch.autograd.Function):
                 window):
         ctx.num_rows = num_rows
         ctx.save_for_backward(x, senders_sorted, receivers_sorted, w_sorted)
-        # receiver −1 (sort_edges_csr's padding) is not counted
-        row_ptr = build_row_ptr(receivers_sorted, num_rows, 128)
+        # receiver −1 (sort_edges_csr's padding, at the end): not counted
+        rows_pad = _rows_pad(num_rows, 128)
+        row_ptr = csr_offsets(torch.where(receivers_sorted >= 0,
+                                          receivers_sorted, rows_pad),
+                              rows_pad)
         out = banded_sorted_spmm(x, senders_sorted, row_ptr, w_sorted,
                                  row_ptr.shape[0] - 1, window=window)
         return out[:num_rows]
@@ -748,9 +782,10 @@ def spmm_banded(x: torch.Tensor, senders_sorted: torch.Tensor,
                 receivers_sorted: torch.Tensor, w_sorted: torch.Tensor,
                 num_rows: int, window: int = 512) -> torch.Tensor:
     """Differentiable banded SpMM ``[num_rows, F]`` (``tgp_tpu``'s
-    ``spmm_banded``): offsets built by counting ``receivers_sorted`` (ids
-    outside ``[0, rows_pad)``, such as ``sort_edges_csr``'s −1 padding,
-    are dropped), rows padded to 128, then :func:`banded_sorted_spmm`.
+    ``spmm_banded``): offsets of the ascending ``receivers_sorted``, rows
+    padded to 128 (ids past them, and negative ids at the end such as
+    ``sort_edges_csr``'s −1 padding, are not counted), then
+    :func:`banded_sorted_spmm`.
     Gradients for ``x`` and ``w_sorted`` are plain scatters that ignore the
     window, as in JAX."""
     return _BandedSpmm.apply(x, senders_sorted, receivers_sorted, w_sorted,
@@ -776,22 +811,16 @@ def sort_edges_csr(senders: torch.Tensor, receivers: torch.Tensor,
                    edge_weight: torch.Tensor, edge_mask: torch.Tensor,
                    num_rows: int):
     """Sort edges by receiver, masked edges last (receiver −1, weight 0),
-    and build the ``[num_rows+1]`` int32 offsets of the valid ones:
+    and build the ``[num_rows+1]`` int32 offsets of the valid ones
+    (:func:`csr_offsets`; valid receivers must not be negative):
     ``(senders, receivers, weights, row_ptr)``, as ``tgp_tpu``'s
     ``sort_edges_csr``."""
-    key = torch.where(edge_mask, receivers.to(torch.int64), num_rows)
-    order = torch.argsort(key, stable=True)
+    key, order = torch.sort(
+        torch.where(edge_mask, receivers.to(torch.int64), num_rows),
+        stable=True)
     m = edge_mask[order]
     s_s = senders[order]
     r_s = torch.where(m, receivers[order], -1)
     w_s = torch.where(m, edge_weight[order], 0.0)
-    # receivers outside [0, num_rows) are not counted (segment_sum drops
-    # them)
-    ok = edge_mask & (receivers >= 0) & (receivers < num_rows)
-    counts = torch.zeros(num_rows, dtype=torch.int64, device=senders.device)
-    counts.index_add_(0, torch.where(ok, receivers, 0).long(),
-                      ok.to(torch.int64))
-    row_ptr = torch.zeros(num_rows + 1, dtype=torch.int32,
-                          device=senders.device)
-    row_ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
-    return s_s, r_s, w_s, row_ptr
+    # masked edges and receivers past the rows are not counted
+    return s_s, r_s, w_s, csr_offsets(key, num_rows)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
+from tgp_tpu_torch.ops.kernels.segment_spmm import csr_offsets
 
 __all__ = ["rcm_order", "apply_node_order", "band_after_order",
            "choose_banded_window", "plan_locality_spmm", "locality_spmm"]
@@ -98,8 +99,6 @@ def plan_locality_spmm(edge_index, num_nodes: int, edge_weight=None, *,
 
     order = np.argsort(ei[1], kind="stable")
     s_s, r_s, w_s = ei[0][order], ei[1][order], w[order]
-    counts = np.bincount(r_s, minlength=num_nodes)
-    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     if engine in ("auto", "sorted"):
         chosen = "sorted"
     elif engine == "banded":
@@ -113,6 +112,7 @@ def plan_locality_spmm(edge_index, num_nodes: int, edge_weight=None, *,
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    receivers = dev(r_s.astype(np.int32))
     return {
         "engine": chosen,
         "window": window,
@@ -120,9 +120,9 @@ def plan_locality_spmm(edge_index, num_nodes: int, edge_weight=None, *,
         "perm": perm,
         "inv": inv,
         "senders": dev(s_s.astype(np.int32)),
-        "receivers": dev(r_s.astype(np.int32)),
+        "receivers": receivers,
         "edge_weight": dev(w_s),
-        "row_ptr": dev(row_ptr),
+        "row_ptr": csr_offsets(receivers, num_nodes),
     }
 
 

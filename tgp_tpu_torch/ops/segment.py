@@ -17,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from tgp_tpu_torch.ops.kernels.segment_spmm import csr_offsets
+
 __all__ = [
     "segment_sum",
     "gather_rows",
@@ -51,8 +53,8 @@ def _in_range(ids: Tensor, num_segments: int):
 def _sorted_layout(ids: Tensor, num_segments: int, ids_sorted: bool):
     """``(perm, row_ptr)`` of ids clipped to ``[0, num_segments)``: the
     int32 order of a stable sort (the identity when ``ids_sorted``) and
-    the ``[num_segments + 1]`` int32 offsets of each segment's run, from
-    ``searchsorted`` on the device."""
+    the ``[num_segments + 1]`` int32 offsets of each segment's run
+    (:func:`~tgp_tpu_torch.ops.kernels.segment_spmm.csr_offsets`)."""
     cids = ids.to(torch.int64).clamp(0, num_segments - 1).to(torch.int32)
     if ids_sorted:
         rids = cids
@@ -61,10 +63,7 @@ def _sorted_layout(ids: Tensor, num_segments: int, ids_sorted: bool):
     else:
         rids, perm = torch.sort(cids, stable=True)
         perm = perm.to(torch.int32)
-    row_ptr = torch.searchsorted(
-        rids, torch.arange(num_segments + 1, dtype=torch.int32,
-                           device=ids.device), out_int32=True)
-    return perm, row_ptr
+    return perm, csr_offsets(rids, num_segments)
 
 
 def _ordered_sum(rows: Tensor, ids: Tensor, keep: Tensor, num_segments: int,

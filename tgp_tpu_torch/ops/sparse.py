@@ -5,6 +5,8 @@ post-processing, and the regime maps that route SpMM to the CUDA kernel.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from tgp_tpu_torch.ops.segment import (
@@ -21,6 +23,7 @@ __all__ = [
     "remove_self_loops",
     "add_remaining_self_loops",
     "use_kernel_spmm",
+    "spmm_route",
     "use_dense_pipeline",
     "use_dense_vote",
     "DENSE_VOTE_BUDGET",
@@ -141,6 +144,31 @@ def use_kernel_spmm(num_edges: int, edges_sorted: bool,
             and torch.device(device).type == "cuda")
 
 
+def spmm_route(batch, use_kernel: Optional[bool] = None) -> str:
+    """A layer's SpMM route over ``batch``, in the kernel regime (its
+    ``use_kernel``; None applies :func:`use_kernel_spmm`) with
+    receiver-sorted edges: ``"csr"`` (K1) with the collator's CSR
+    metadata, ``"sorted"`` without; else ``"generic"``."""
+    if use_kernel is None:
+        use_kernel = use_kernel_spmm(batch.num_edges, batch.edges_sorted,
+                                     batch.device)
+    if not (use_kernel and batch.edges_sorted):
+        return "generic"
+    return "sorted" if batch.row_ptr is None else "csr"
+
+
+def _spmm_csr_batch(batch, x, w, w_t):
+    """K1 over ``batch``'s CSR layout, ``w`` and ``w_t`` (None: no
+    gradient for ``x``) the weights in its two orders, cast to f32."""
+    from tgp_tpu_torch.ops.kernels.segment_spmm import spmm_csr
+
+    return spmm_csr(x.contiguous(), w.to(torch.float32),
+                    None if w_t is None else w_t.to(torch.float32),
+                    batch.senders, batch.receivers, batch.row_ptr,
+                    batch.receivers_t, batch.senders_t, batch.row_ptr_t,
+                    batch.num_nodes)
+
+
 #: model-level crossover carried over from the JAX package; untuned on
 #: the H100
 DENSE_PIPELINE_MAX_NODES = 2048
@@ -201,10 +229,9 @@ def spmm(senders, receivers, edge_weight, x, num_nodes: int, *,
 
 def spmm_batch(batch, x=None, *, abs_weights: bool = False):
     """``A X`` over a :class:`~tgp_tpu_torch.graph.GraphBatch` on the
-    fastest path: the CSR kernel when the collator's metadata is present
-    and :func:`use_kernel_spmm` holds, else gather + segment-sum.  Masked
-    pooled graphs (``node_mask_shrunk``) cover the induced subgraph;
-    ``abs_weights`` aggregates with ``|w|``."""
+    fastest path: the CSR kernel on :func:`spmm_route`'s ``"csr"``, else
+    gather + segment-sum.  Masked pooled graphs (``node_mask_shrunk``)
+    cover the induced subgraph; ``abs_weights`` aggregates with ``|w|``."""
     if x is None:
         x = batch.x
     w = torch.where(batch.edge_mask, batch.edge_weight, 0.0)
@@ -213,16 +240,9 @@ def spmm_batch(batch, x=None, *, abs_weights: bool = False):
         w = w.abs()
         w_t = None if w_t is None else w_t.abs()
     nm = batch.node_mask
-    if batch.row_ptr is not None and use_kernel_spmm(
-            batch.num_edges, batch.edges_sorted, x.device):
-        from tgp_tpu_torch.ops.kernels.segment_spmm import spmm_csr
-
+    if spmm_route(batch) == "csr":
         x_in = x * nm[:, None].to(x.dtype) if batch.node_mask_shrunk else x
-        return spmm_csr(x_in.contiguous(), w.to(torch.float32),
-                        None if w_t is None else w_t.to(torch.float32),
-                        batch.senders, batch.receivers, batch.row_ptr,
-                        batch.receivers_t, batch.senders_t, batch.row_ptr_t,
-                        batch.num_nodes)
+        return _spmm_csr_batch(batch, x_in, w, w_t)
     if batch.node_mask_shrunk:
         s, r = batch.senders.long(), batch.receivers.long()
         w = w * (nm[s] & nm[r])

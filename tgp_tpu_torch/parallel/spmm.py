@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from tgp_tpu_torch._device import DeviceLike, resolve_device
+from tgp_tpu_torch.ops.kernels.segment_spmm import csr_layouts
 from tgp_tpu_torch.parallel._collectives import (all_gather_rows,
                                                  group_size, ppermute)
 
@@ -70,33 +71,25 @@ def partition_edges(senders, receivers, edge_weight, num_nodes: int,
     return _tensors(device, S, R, W) + (n_pad, rows_per)
 
 
-def _offsets(sorted_ids: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """``[num_rows + 1]`` int32 CSR offsets of ascending ids."""
-    return torch.searchsorted(
-        sorted_ids, torch.arange(num_rows + 1, dtype=sorted_ids.dtype,
-                                 device=sorted_ids.device), out_int32=True)
-
-
 class CsrLayout:
     """One rank's edges ``(senders into [n_src] rows, receivers into
-    [num_rows] rows)`` in K1's two layouts: receiver-sorted with
-    ``row_ptr`` (the forward) and sender-sorted with ``row_ptr_t`` (the
-    gradient for ``x``).  Both sorts are stable, so padding edges (``s =
-    r = 0, w = 0``) keep their order and add zero to row 0."""
+    [num_rows] rows)`` in K1's two layouts
+    (:func:`~tgp_tpu_torch.ops.kernels.segment_spmm.csr_layouts`):
+    receiver-sorted with ``row_ptr`` (the forward) and sender-sorted with
+    ``row_ptr_t`` (the gradient for ``x``); ``order`` and ``order_t`` take
+    an edge array of the input order into each.  Both sorts are stable,
+    so padding edges (``s = r = 0, w = 0``) keep their order and add zero
+    to row 0."""
 
     def __init__(self, senders: torch.Tensor, receivers: torch.Tensor,
                  num_rows: int, n_src: int):
-        s = senders.to(torch.int32)
-        r = receivers.to(torch.int32)
+        csr = csr_layouts(senders.to(torch.int32),
+                          receivers.to(torch.int32), num_rows, n_src)
         self.num_rows, self.n_src = num_rows, n_src
-        self.order = torch.argsort(r, stable=True)
-        self.senders = s[self.order].contiguous()
-        self.receivers = r[self.order].contiguous()
-        self.row_ptr = _offsets(self.receivers, num_rows)
-        self.order_t = torch.argsort(s, stable=True)
-        self.senders_t = s[self.order_t].contiguous()
-        self.receivers_t = r[self.order_t].contiguous()
-        self.row_ptr_t = _offsets(self.senders_t, n_src)
+        self.order, self.order_t = csr.order, csr.order[csr.perm]
+        self.senders, self.receivers = csr.senders, csr.receivers
+        self.senders_t, self.receivers_t = csr.senders_t, csr.receivers_t
+        self.row_ptr, self.row_ptr_t = csr.row_ptr, csr.row_ptr_t
 
     def spmm(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         """``out[r] = Σ_{e: recv=r} w_e · x[send_e]`` on K1 (``[num_rows,

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from tgp_tpu_torch.graph import GraphBatch
-from tgp_tpu_torch.ops.sparse import use_kernel_spmm
+from tgp_tpu_torch.ops.sparse import spmm_route
 from tgp_tpu_torch.select.base import SelectOutput
 from tgp_tpu_torch.src import PoolingOutput
 
@@ -38,8 +38,7 @@ def use_masked_pool(pool_mode: str, batch: GraphBatch, *,
                          f"{pool_mode!r}")
     if degree_norm or edge_weight_norm or s_inv_op != "transpose":
         return False
-    return batch.row_ptr is not None and use_kernel_spmm(
-        batch.num_edges, batch.edges_sorted, batch.device)
+    return spmm_route(batch) == "csr"
 
 
 def masked_pool(batch: GraphBatch, so: SelectOutput, *,

@@ -63,7 +63,8 @@ def delta_gcn_csr(batch: GraphBatch, delta: float = 2.0):
     without it is sorted receiver-major, then sender-major, here.  The
     degree (over the senders, as JAX's) is a fixed-order sum over the
     sender-sorted layout (K4)."""
-    from tgp_tpu_torch.ops.kernels.segment_spmm import (sort_edges_csr,
+    from tgp_tpu_torch.ops.kernels.segment_spmm import (csr_offsets,
+                                                        sort_edges_csr,
                                                         sorted_segment_sum)
 
     N = batch.num_nodes
@@ -80,8 +81,7 @@ def delta_gcn_csr(batch: GraphBatch, delta: float = 2.0):
         key_t, perm = torch.sort(torch.where(valid, s.long(), N),
                                  stable=True)
         s_t, r_t, w_t = s[perm], r[perm], w[perm]
-        rp_t = torch.searchsorted(key_t, torch.arange(
-            N + 1, device=s.device), out_int32=True)
+        rp_t = csr_offsets(key_t, N)
     w, w_t = w.to(torch.float32), w_t.to(torch.float32)
     deg = sorted_segment_sum(w_t[:, None].contiguous(), None, rp_t, N)[:, 0]
     dinv = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-12)),
