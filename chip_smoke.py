@@ -46,7 +46,10 @@ each of which raises on failure:
    sum readout → MLP head, hidden 128, bf16) on full-size requests (one
    graph each: 65,536 nodes, 1,000,000 random edges, 128 features), with
    the kernels' launch counts (K1 3 times and the readout's K4 once a
-   request, on its ``"long"`` route), the logits held against the same
+   request, on its ``"long"`` route: what the host dispatches through the
+   wrappers, and, the forward being replayed as a CUDA graph, which calls
+   no wrapper, each request profiled once more for the kernels its device
+   trace records), the logits held against the same
    model run on the CPU with
    the kernels' plain versions, and a repeated request required to give
    the same logits bit for bit;
@@ -505,6 +508,47 @@ def _wrappers():
             "sorted_segment_sum": segment_spmm.sorted_segment_sum,
             "spmm_banded": segment_spmm.banded_sorted_spmm,
             "sddmm_banded": sddmm.banded_sddmm}
+
+
+#: the kernels a device trace names for K1, K2 and K4: the CSR kernels of
+#: ``segment_spmm.cu`` (K1, K2 and K4's ``"wide"`` route) and K4's
+#: ``"long"`` route, ``segment_reduce.cu``
+TRACED_KERNELS = {"csr": ("csr_wide_kernel<", "csr_narrow_kernel<"),
+                  "long": ("segment_reduce_kernel<",)}
+
+
+def traced_request(fn):
+    """``fn()`` profiled (CPU and CUDA): the attributes of its
+    ``tgp.model.forward`` spans, and its device trace's kernel records of
+    each kind of ``TRACED_KERNELS``, read from the exported trace."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    from tgp_tpu_torch import tracing
+
+    tracing.reset()
+    with torch.inference_mode(), prof(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    forwards = [r["attrs"] for r in tracing.spans()
+                if r["name"] == "tgp.model.forward"]
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        p.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    kernels = dict.fromkeys(TRACED_KERNELS, 0)
+    for e in events:
+        if e.get("cat") == "kernel":
+            for kind, marks in TRACED_KERNELS.items():
+                kernels[kind] += any(m in e.get("name", "") for m in marks)
+    return forwards, kernels
 
 
 def reset_counts() -> None:
@@ -1382,8 +1426,10 @@ def build_model(device, *, alias="topk", pool_mode="auto", use_kernel=None,
 def phase_serving(card, graphs, batch, collate_ms, profile: bool,
                   alias="topk"):
     """Serve ``graphs`` (``batch`` is the first, collated) with the
-    defaults a user gets, count the kernel launches, and hold the logits
-    to the CPU.  ``alias="sag"`` serves SAG: its GraphConv scorer must run
+    defaults a user gets, count the kernel launches (the wrappers' counts
+    of the timed requests, which a forward replayed as a CUDA graph does
+    not reach; for a replayed forward, each request's kernel records in
+    its device trace), and hold the logits to the CPU.  ``alias="sag"`` serves SAG: its GraphConv scorer must run
     its ``A X`` in K1 (one more launch a request).  A clustering pooler
     (``CLUSTERS``): K1 once, K4 ``K4_WIDE_PER_FORWARD`` times more on its
     ``"wide"`` route and K2 twice a request, the greedy loop's rounds
@@ -1417,7 +1463,9 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
             raise AssertionError(f"SAG's scorer launched {scorer}, want one "
                                  "K1 launch (its CSR branch)")
 
-    # the main path, counted: the predictor answers every request
+    # the main path, counted: the predictor answers every request; the
+    # wrappers count the launches the host dispatches, all of a request's
+    # or, where its forward replays a captured graph, none
     reset_counts()
     req_ms, served = [], []
     for g in graphs:
@@ -1426,15 +1474,43 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
         req_ms.append(1e3 * (time.perf_counter() - t0))
     launches = read_counts()
     k4_routes = dict(_wrappers()["sorted_segment_sum"].launches_by_route)
-    wide = K4_WIDE_PER_FORWARD[alias] * REQUESTS
-    want = dict.fromkeys(launches, 0)
-    want.update(spmm_csr=k1_per_request * REQUESTS,
-                sorted_segment_sum=REQUESTS + wide,
-                segment_sum_sorted=K2_PER_FORWARD[alias] * REQUESTS)
-    if launches != want or k4_routes != dict(long=REQUESTS, wide=wide):
+    wide = K4_WIDE_PER_FORWARD[alias]
+    k2_per_request = K2_PER_FORWARD[alias]
+    one = dict.fromkeys(launches, 0)  # a dispatched request's
+    one.update(spmm_csr=k1_per_request, sorted_segment_sum=1 + wide,
+               segment_sum_sorted=k2_per_request)
+    capturable = getattr(model.pooler, "CAPTURABLE", False)
+    dispatched = launches["spmm_csr"] // k1_per_request
+    want = {k: n * dispatched for k, n in one.items()}
+    if (launches != want or k4_routes != dict(long=dispatched,
+                                              wide=wide * dispatched)
+            or dispatched > REQUESTS
+            or dispatched < REQUESTS and not capturable):
         raise AssertionError(f"{REQUESTS} requests launched {launches}, K4 "
-                             f"by route {k4_routes}, want {want}, every "
-                             f"readout on the long route and {wide} wide")
+                             f"by route {k4_routes}: want {one} for each "
+                             "request the host dispatched (every one but "
+                             "a replayed graph's), every readout on the "
+                             "long route")
+    # a pooler marked CAPTURABLE: the same requests again, each profiled;
+    # every forward replays its captured graph, dispatching nothing, and
+    # the device trace records the graph's kernels
+    hows = traced = None
+    if capturable:
+        traced = [traced_request(lambda g=g: predictor([g]))
+                  for g in graphs]
+        hows = [f["graph"] for fs, _ in traced for f in fs]
+        if hows != ["replay"] * REQUESTS:
+            raise AssertionError(f"the traced requests' forwards ran {hows}")
+        for fs, kernels in traced:
+            if fs[0]["launches"] or kernels != dict(
+                    csr=k1_per_request + k2_per_request + wide, long=1):
+                raise AssertionError(
+                    f"a replayed request dispatched {fs[0]['launches']} "
+                    f"and its device trace holds {kernels}: want none "
+                    f"dispatched, and {k1_per_request} K1, "
+                    f"{k2_per_request} K2 and {wide} wide K4 CSR kernels "
+                    "and one long K4 kernel")
+        traced = traced[0][1]
     served = np.concatenate(served)
     if served.shape != (REQUESTS, CLASSES) or not np.isfinite(served).all():
         raise AssertionError(f"bad logits {served}")
@@ -1481,10 +1557,12 @@ def phase_serving(card, graphs, batch, collate_ms, profile: bool,
         edges_per_s=N_EDGES / (statistics.median(req_ms) / 1e3),
         collate_ms=collate_ms, forward_device_ms=statistics.median(fwd),
         forward_device_ms_all=fwd, launches=launches,
-        k4_launches_by_route=k4_routes,
-        k1_launches_per_request=launches["spmm_csr"] / REQUESTS,
-        k4_launches_per_request=launches["sorted_segment_sum"] / REQUESTS,
-        k2_launches_per_request=launches["segment_sum_sorted"] / REQUESTS,
+        k4_launches_by_route=k4_routes, forwards=hows,
+        replayed_kernels_per_request=traced,
+        dispatched_requests=dispatched,
+        k1_launches_per_request=one["spmm_csr"],
+        k4_launches_per_request=one["sorted_segment_sum"],
+        k2_launches_per_request=one["segment_sum_sorted"],
         logits_first=served[0].tolist(), cpu_logits_first=ref[0].tolist(),
         max_abs_diff_vs_cpu=diff, tol=tol, repeat_bit_equal=repeat_equal)
     if alias == "sag":

@@ -3,7 +3,9 @@ its K1, K2 and K4 ``"wide"`` modes and K1's backward, ``segment_reduce.cu``
 (K4's ``"long"`` route and the readout's gathered sum), ``banded_spmm.cu``
 (K5), ``bmm.cu``, ``sddmm.cu``) against their plain PyTorch versions, on
 the card (and the models over them: GTVConv's CSR route against its
-generic one, the clustering and autoencoder models' step one), and runs on the same inputs against each other (every sum order
+generic one, the clustering and autoencoder models' step one; the served
+``PoolingClassifier``'s CUDA-graph replay against its eager forward), and
+runs on the same inputs against each other (every sum order
 but K3's is fixed, so they are equal bit for bit); and ``from_graphs``'
 collation on the card (page-locked staging, the padding built there)
 against ``collate_oracle``'s packing, bit for bit.  Without one the tests
@@ -2406,3 +2408,211 @@ def test_cuda_sharded_topk_model_matches_its_plain_route(alias):
     out = _sharded_pool_runs(run)
     scale = max(float(out["cpu"].abs().max()), 1e-30)
     assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-4 * scale
+
+
+def _served_topk_model(alias="topk", **pooler):
+    """The served configuration's model: GCN (bf16) → top-k → GCN → mean
+    readout → head, hidden 128 (``pooler``: more of the pooler's
+    arguments)."""
+    from tgp_tpu_torch import PoolingClassifier, get_pooler
+
+    torch.manual_seed(3)
+    return PoolingClassifier(
+        get_pooler(alias, in_channels=128, ratio=0.5, device="cuda",
+                   **pooler),
+        num_classes=2, hidden=128, in_channels=128, readout="mean",
+        compute_dtype=torch.bfloat16, device="cuda").eval()
+
+
+def _replay_buckets(route):
+    """Four batches of different graphs a bucket, collated on the card:
+    one K1 bucket (a graph of 16,384 nodes and 300,000–303,000 edges a
+    request, ``sort_edges``: the masked CSR route), or two buckets of
+    ``serve-small-graphs`` (eight D&D-sized graphs a request: the compact
+    generic route)."""
+    from tgp_tpu_torch import from_graphs
+
+    rng = np.random.default_rng(26)
+    if route == "csr":
+        groups = [[_large_request(rng, 16384, 300_000 + 1000 * i)
+                   for i in range(4)]]
+    else:
+        by = {}
+        while sum(len(g) >= 4 for g in by.values()) < 2:
+            r = _dd_request(rng)
+            by.setdefault(tuple(_bucket_of(r).values()), []).append(r)
+        groups = [g[:4] for g in by.values() if len(g) >= 4][:2]
+    return [[from_graphs(r, sort_edges=route == "csr", device="cuda",
+                         **_bucket_of(r)) for r in g] for g in groups]
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+#: K1's and K4's kernels as the device trace names them: the CSR kernels
+#: of ``segment_spmm.cu`` (K1, K2 and K4's ``"wide"`` route) and
+#: ``segment_reduce.cu``'s (K4's ``"long"`` route)
+_K1_K4_KERNELS = ("csr_wide_kernel<", "csr_narrow_kernel<",
+                  "segment_reduce_kernel<")
+
+
+def _traced_kernels(prof, path) -> dict:
+    """K1's and K4's kernel records in a finished profile, by name and
+    count, read from its exported trace as ``portbench`` reads it."""
+    import json
+
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel" and any(k in e.get("name", "")
+                                            for k in _K1_K4_KERNELS):
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+MIN_SCORE = 0.1  # top-k's threshold mode: a score bound in place of k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_score", [None, MIN_SCORE])
+@pytest.mark.parametrize("route", ["csr", "generic"])
+def test_cuda_served_forward_replays_the_eager_bits(route, min_score,
+                                                    tmp_path):
+    """The served model's forward on the card, each bucket's four requests
+    in turn (the buckets interleaved), then each bucket's first again: the
+    calls run eager, capture, replay, replay, replay; every call's logits
+    and selection equal the eager forward's on its own batch bit for bit
+    (two requests of one bucket differ, so a stale answer fails); what a
+    call returned is unchanged after the later calls; the device trace of
+    every call holds the eager forward's K1 and K4 kernels, by name and
+    count (K1 3 on the CSR route), while a replay's span counts no
+    wrapper launch; and the calls but the capture run under
+    ``set_sync_debug_mode("error")``, the replays returning behind ~0.5 s
+    of spinning that they enqueue before.  With top-k's ``min_score``
+    too."""
+    from tgp_tpu_torch import tracing
+
+    _skip_without_card()
+    buckets = _replay_buckets(route)
+    model = _served_topk_model(min_score=min_score)
+    with torch.inference_mode():
+        want = [[model._forward(b) for b in batches] for batches in buckets]
+    assert len(model._graphs) == 0
+    for w in want:  # two requests of a bucket give their own answers
+        assert not torch.equal(w[2][0], w[3][0])
+        assert not torch.equal(w[2][1].so.node_sel_mask,
+                               w[3][1].so.node_sel_mask)
+        assert (w[0][1].so.extras.get("pool_mode") == "masked") == (
+            route == "csr")
+    order = [(b, j) for j in range(4) for b in range(len(buckets))] + [
+        (b, 0) for b in range(len(buckets))]
+    calls, seen = [], [0] * len(buckets)
+    with torch.inference_mode():
+        for b, j in order:
+            capture = seen[b] == 1
+            seen[b] += 1
+            spun = torch.cuda.Event()
+            if seen[b] > 2:
+                torch.cuda.synchronize()
+                torch.cuda._sleep(1_000_000_000)
+            spun.record()
+            tracing.reset()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                if not capture:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    logits, out = model(buckets[b][j])
+                    early = not spun.query()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            # a replay is enqueued while the card still spins
+            assert early or seen[b] <= 2
+            (fwd,) = [r for r in tracing.spans()
+                      if r["name"] == "tgp.model.forward"]
+            mask = out.so.node_sel_mask
+            calls.append((b, j, fwd["attrs"],
+                          _traced_kernels(prof, tmp_path / "trace.json"),
+                          logits, mask, logits.clone(), mask.clone()))
+    for b in range(len(buckets)):
+        mine = [c for c in calls if c[0] == b]
+        assert [c[2]["graph"] for c in mine] == [
+            "eager", "capture", "replay", "replay", "replay"]
+        launches = mine[0][2]["launches"]
+        assert launches.get("spmm_csr", 0) == (3 if route == "csr" else 0)
+        assert [c[2]["launches"] for c in mine] == [launches] * 2 + [{}] * 3
+        # the eager forward's trace holds a kernel a wrapper launch, and
+        # every later call's the same kernels
+        kernels = mine[0][3]
+        assert sum(kernels.values()) == sum(
+            n for k, n in launches.items() if isinstance(k, str))
+        assert all(c[3] == kernels for c in mine)
+    for b, j, _, _, logits, mask, logits_then, mask_then in calls:
+        w_logits, w_out = want[b][j]
+        assert torch.equal(_bits(logits), _bits(w_logits))
+        assert torch.equal(mask, w_out.so.node_sel_mask)
+        assert torch.equal(_bits(logits), _bits(logits_then))
+        assert torch.equal(mask, mask_then)
+
+
+@pytest.mark.cuda
+def test_cuda_replays_on_two_streams_keep_their_own_scratch():
+    """Two caller streams serve one K1 bucket: each captures a graph of
+    its own on a capture stream of its own (K1 keeps its counters per
+    stream); replays enqueued on both at once, each behind ~10 ms of
+    spinning on its stream so that they run together, give each
+    request's eager bits."""
+    _skip_without_card()
+    (batches,) = _replay_buckets("csr")
+    model = _served_topk_model()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    with torch.inference_mode():
+        want = [model._forward(b) for b in batches]
+        for s in streams:  # eager, then captured, on each stream
+            with torch.cuda.stream(s):
+                model(batches[0])
+                model(batches[0])
+        torch.cuda.synchronize()
+        got = []
+        for r in range(4):
+            for k, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    torch.cuda._sleep(20_000_000)
+                    j = (r + k) % len(batches)
+                    got.append((j, model(batches[j])))
+            torch.cuda.synchronize()
+    assert len(model._graphs) == 2
+    captures = list(model._graphs._streams.values())
+    assert len(captures) == 2
+    assert captures[0].cuda_stream != captures[1].cuda_stream
+    for j, (logits, out) in got:
+        assert torch.equal(_bits(logits), _bits(want[j][0]))
+        assert torch.equal(out.so.node_sel_mask, want[j][1].so.node_sel_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["grad", "unmarked"])
+def test_cuda_forward_stays_eager_with_grad_or_unmarked(case):
+    """With a gradient taken, or with a pooler not marked ``CAPTURABLE``
+    (SAG), every call on the card runs eagerly and nothing is captured."""
+    from tgp_tpu_torch import tracing
+
+    _skip_without_card()
+    (batches,) = _replay_buckets("csr")[:1]
+    model = _served_topk_model("sag" if case == "unmarked" else "topk")
+    mode = torch.enable_grad if case == "grad" else torch.inference_mode
+    hows = []
+    with mode():
+        for _ in range(3):
+            tracing.reset()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]):
+                logits, _ = model(batches[0])
+            hows += [r["attrs"]["graph"] for r in tracing.spans()
+                     if r["name"] == "tgp.model.forward"]
+    assert hows == ["eager"] * 3 and len(model._graphs) == 0
+    assert logits.requires_grad == (case == "grad")

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import cuda_graph_stub
+
 from tgp_tpu_torch import (DenseTopkClassifier, HierarchicalClassifier,
                            PoolingClassifier, Predictor, from_graphs,
                            gcn_norm_dense, get_pooler, to_dense, tracing)
@@ -311,3 +313,71 @@ def test_the_cap_drops_the_oldest_and_counts_them(monkeypatch):
     assert tracing.dropped() == 3
     tracing.reset()
     assert tracing.spans() == [] and tracing.dropped() == 0
+
+
+@pytest.mark.parametrize("sort_edges", [True, False])
+def test_a_replayed_request_dispatches_no_launch(sort_edges, counting,
+                                                 monkeypatch):
+    """A request served by a replayed graph (the stand-in of
+    ``cuda_graph_stub``): the forward span says ``"replay"``, opens no
+    child and counts no launch, because the replay calls no wrapper; the
+    request's own spans are as an eager one's."""
+    graphs = _graphs(2)
+    model = _sparse_model()
+    serve = Predictor(lambda b: model(b)[0], batch_size=2,
+                      sort_edges=sort_edges, device="cpu")
+    cuda_graph_stub.install(monkeypatch)
+    with torch.inference_mode():
+        serve(graphs)  # each chunk's signature eager, then captured
+        serve(graphs)
+        before = tracing.launches()
+        with _profiled():
+            serve(graphs)
+    assert _delta(before, tracing.launches()) == {}
+    recs = tracing.spans()
+    (root,) = [r for r in recs if r["parent"] is None]
+    chunks = _children(recs, root)
+    assert [r["name"] for r in chunks] == [
+        "tgp.collate", "tgp.model.forward", "tgp.predict.d2h"] * 2
+    collate = COLLATE if sort_edges else COLLATE[:2]
+    for r in chunks[::3]:
+        assert [c["name"] for c in _children(recs, r)] == collate
+    for f in chunks[1::3]:
+        assert f["attrs"] == {"graph": "replay", "launches": {}}
+        assert _children(recs, f) == []
+
+
+def test_forward_says_how_it_ran(counting, monkeypatch):
+    """``graph`` on ``PoolingClassifier``'s forward span: ``"eager"``,
+    ``"capture"``, then ``"replay"`` (with the stand-in graph of
+    ``cuda_graph_stub``); the capture runs the forward's Python and counts
+    its launches, a replay opens no child span and counts none.  The
+    other models' forward spans carry no ``graph``."""
+    model, batch = _sparse_model(), _batch("sparse")
+    with torch.inference_mode(), _profiled():
+        model(batch)  # the CPU: eager
+        cuda_graph_stub.install(monkeypatch)
+        for _ in range(4):
+            model(batch)
+    recs = tracing.spans()
+    roots = [r for r in recs if r["parent"] is None]
+    assert [r["attrs"]["graph"] for r in roots] == [
+        "eager", "eager", "capture", "replay", "replay"]
+    launches = [r["attrs"]["launches"] for r in roots]
+    assert launches[0]["spmm_csr"] == 3
+    assert launches[:3] == [launches[0]] * 3 and launches[3:] == [{}, {}]
+    assert [[c["name"] for c in _children(recs, r)] for r in roots] == [
+        MODEL, MODEL, MODEL, [], []]
+    tracing.reset()
+    with _profiled():
+        for kind in ("dense", "hierarchical"):
+            if kind == "dense":
+                MODELS["dense"]()(_batch("dense"))
+            else:
+                g = torch.Generator().manual_seed(0)
+                HierarchicalClassifier(
+                    [get_pooler("topk", in_channels=HIDDEN, device="cpu",
+                                generator=g)], num_classes=3, hidden=HIDDEN,
+                    in_channels=F_IN, device="cpu", generator=g)(batch)
+    assert [sorted(r["attrs"]) for r in tracing.spans()
+            if r["name"] == "tgp.model.forward"] == [["launches"]] * 2

@@ -16,7 +16,8 @@ from torch.utils.checkpoint import checkpoint
 
 from tgp_tpu_torch import tracing
 from tgp_tpu_torch._device import DeviceLike, resolve_device
-from tgp_tpu_torch.graph import DenseGraphBatch
+from tgp_tpu_torch.graph import DenseGraphBatch, GraphBatch
+from tgp_tpu_torch.models.graph_replay import GraphReplay
 from tgp_tpu_torch.mp.gcn import GCNConv
 from tgp_tpu_torch.reduce.global_reduce import global_reduce
 from tgp_tpu_torch.src import PoolingOutput
@@ -53,6 +54,13 @@ class PoolingClassifier(nn.Module):
     (``None`` means False there, as in JAX).  These flags do not change the
     sparse path.  ``remat`` recomputes the GCN layers' activations in the
     backward pass (:func:`conv_step`); the parameters are the same.
+
+    A sparse batch on a CUDA device, with no gradient taken and a pooler
+    whose ``CAPTURABLE`` flag is set, is served from CUDA graphs
+    (:class:`~tgp_tpu_torch.models.graph_replay.GraphReplay`): the first
+    call of a batch signature runs eagerly, the second captures it, later
+    ones replay it; the logits and the selection are the eager forward's
+    bit for bit.  Every other call runs eagerly.
     """
 
     def __init__(self, pooler: nn.Module, num_classes: int, hidden: int = 64,
@@ -88,33 +96,54 @@ class PoolingClassifier(nn.Module):
         self.dense_1 = lecun_normal_linear(hidden, num_classes,
                                            generator=generator)
         self.to(device)
+        self._graphs = GraphReplay()
 
     def forward(self, batch) -> Tuple[torch.Tensor, PoolingOutput]:
-        """Traced as ``tgp.model.forward`` (with ``launches``) around
-        ``tgp.model.conv`` (each), ``tgp.model.pool`` and
-        ``tgp.model.readout`` (the readout and the head)."""
-        with tracing.span("tgp.model.forward", count_launches=True):
-            x = batch.x
-            if (isinstance(batch, DenseGraphBatch)
-                    and self.compute_dtype is not None):
-                x = x.to(self.compute_dtype)
-            for conv in self.pre_convs:
-                with tracing.span("tgp.model.conv"):
-                    x = conv_step(conv, batch, x, self.remat)
-            with tracing.span("tgp.model.pool"):
-                out: PoolingOutput = self.pooler(batch.with_features(x))
-            pooled = out.graph if out.graph is not None else out.dense
-            h = pooled.x
-            for conv in self.post_convs:
-                with tracing.span("tgp.model.conv"):
-                    h = conv_step(conv, pooled, h, self.remat)
-            where = (dict(mask=pooled.mask) if out.graph is None else dict(
-                node_graph=pooled.node_graph, num_graphs=pooled.num_graphs,
-                node_mask=pooled.node_mask))
-            with tracing.span("tgp.model.readout"):
-                z = global_reduce(h.to(torch.float32), op=self.readout,
-                                  **where)
-                logits = self.dense_1(F.relu(self.dense_0(z)))
+        """Traced as ``tgp.model.forward`` (with ``launches``, and
+        ``graph``: ``"eager"``, ``"capture"`` or ``"replay"``) around, when
+        it runs eagerly or captures, ``tgp.model.conv`` (each),
+        ``tgp.model.pool`` and ``tgp.model.readout`` (the readout and the
+        head)."""
+        with tracing.span("tgp.model.forward", count_launches=True) as sp:
+            if self._replayable(batch):
+                how, (logits, out) = self._graphs.run(self._forward, batch,
+                                                      self)
+            else:
+                how, (logits, out) = "eager", self._forward(batch)
+            if sp:
+                sp.set(graph=how)
+        return logits, out
+
+    def _replayable(self, batch) -> bool:
+        """No gradient taken, a sparse batch on the card (and no capture
+        of the caller's under way), a pooler marked ``CAPTURABLE``."""
+        return (not torch.is_grad_enabled()
+                and isinstance(batch, GraphBatch) and batch.x.is_cuda
+                and getattr(self.pooler, "CAPTURABLE", False)
+                and not torch.cuda.is_current_stream_capturing())
+
+    def _forward(self, batch) -> Tuple[torch.Tensor, PoolingOutput]:
+        x = batch.x
+        if (isinstance(batch, DenseGraphBatch)
+                and self.compute_dtype is not None):
+            x = x.to(self.compute_dtype)
+        for conv in self.pre_convs:
+            with tracing.span("tgp.model.conv"):
+                x = conv_step(conv, batch, x, self.remat)
+        with tracing.span("tgp.model.pool"):
+            out: PoolingOutput = self.pooler(batch.with_features(x))
+        pooled = out.graph if out.graph is not None else out.dense
+        h = pooled.x
+        for conv in self.post_convs:
+            with tracing.span("tgp.model.conv"):
+                h = conv_step(conv, pooled, h, self.remat)
+        where = (dict(mask=pooled.mask) if out.graph is None else dict(
+            node_graph=pooled.node_graph, num_graphs=pooled.num_graphs,
+            node_mask=pooled.node_mask))
+        with tracing.span("tgp.model.readout"):
+            z = global_reduce(h.to(torch.float32), op=self.readout,
+                              **where)
+            logits = self.dense_1(F.relu(self.dense_0(z)))
         return logits, out
 
 

@@ -118,6 +118,7 @@ class TopkPooling(SRCPooling):
 
     IS_TRAINABLE = True
     ACCEPTS_DENSE_BATCH = True
+    CAPTURABLE = True
 
     def __init__(self, in_channels: Optional[int] = None,
                  ratio: Union[int, float] = 0.5,

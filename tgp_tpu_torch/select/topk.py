@@ -127,7 +127,7 @@ def topk_select_from_scores(score: Tensor, batch: GraphBatch,
         # PyG ``topk``: threshold at min(max_g − tol, min_score) so the top
         # node of each graph survives
         smax = segment_max(score, node_graph, B, mask=batch.node_mask)
-        thr = torch.minimum(smax - 1e-7, torch.tensor(min_score, device=dev))
+        thr = torch.clamp(smax - 1e-7, max=min_score)
         keep = batch.node_mask & (score > thr[node_graph.long()])
         rank = segment_topk_rank(score, node_graph, B, mask=keep)
     else:

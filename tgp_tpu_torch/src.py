@@ -59,9 +59,13 @@ class SRCPooling(nn.Module):
     overrides with a bare assignment (JAX's values, read by the
     cheatsheet): ``IS_DENSE``, ``HAS_LOSS`` (auxiliary losses),
     ``IS_TRAINABLE``, ``IS_PRECOARSENABLE`` (a feature-independent
-    selection that can run offline), ``SUPPORTS_SPARSE_OUT``, and
+    selection that can run offline), ``SUPPORTS_SPARSE_OUT``,
     ``ACCEPTS_DENSE_BATCH``: the pooler's ``forward`` takes a
-    :class:`DenseGraphBatch` (the gate of ``prepare_batch``)."""
+    :class:`DenseGraphBatch` (the gate of ``prepare_batch``), and
+    ``CAPTURABLE``: its forward of a sparse batch reads nothing back to
+    the host, so a CUDA graph can capture it (the gate of
+    :class:`~tgp_tpu_torch.models.classifiers.PoolingClassifier`'s
+    replay)."""
 
     IS_DENSE = False
     HAS_LOSS = False
@@ -69,6 +73,7 @@ class SRCPooling(nn.Module):
     IS_PRECOARSENABLE = False
     SUPPORTS_SPARSE_OUT = True
     ACCEPTS_DENSE_BATCH = False
+    CAPTURABLE = False
 
     def __init__(self, lift_op: str = "precomputed",
                  lift_red_op: str = "sum"):
